@@ -22,8 +22,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD = os.path.join(HERE, "build")
 
-# kernel library -> its source; every source also includes goldilocks.cuh
-SOURCES = {"ntt": "ntt.cu", "poseidon": "poseidon.cu"}
+# kernel library -> its source; the shared header goes into every
+# library's hash, so an edit to it rebuilds them all
+SOURCES = {"ntt": "ntt.cu", "poseidon": "poseidon.cu", "sha256": "sha256.cu"}
 _SHARED = ("goldilocks.cuh",)
 
 _P = ctypes.c_void_p
@@ -42,6 +43,10 @@ _SIGNATURES = {
         # in, out, batch, n_in, row_stride, col_stride, stream
         "bsx_poseidon_hash_no_pad": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_longlong, _P],
+    },
+    "sha256": {
+        # msgs, out, batch, len, stream
+        "bsx_sha256_fixed_len": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     },
 }
 

@@ -1,15 +1,26 @@
-"""SHA-256 host part (numpy): constants, padding, message schedule and the
-vectorized compression with round-trace export that the SHA-256 chip's
-witness uses.
+"""SHA-256: the numpy host part and the batched fixed-length hash.
 
-A copy of the numpy part of ``blobstreamx_tpu/ops/sha256.py``. The TPU's
-batched SHA-256 kernel (``ops/pallas/sha256.py``) is off the prover's path
-and is not ported here.
+The numpy part (constants, padding, message schedule and the vectorized
+compression with round-trace export) is a copy of that of
+``blobstreamx_tpu/ops/sha256.py``; the SHA-256 chip's trace and the
+witness engine use it.
+
+``sha256_fixed_len`` hashes B messages of one length L, (B, L) uint8 ->
+(B, 32) uint8, as ``blobstreamx_tpu/ops/sha256.py:sha256_fixed_len`` does.
+For a tensor on the card it launches the CUDA kernel (``csrc/sha256.cu``,
+which replaces the TPU kernel ``ops/pallas/sha256.py``); for one on the
+CPU it runs ``sha256_fixed_len_plain``. The plain version works on int64
+masked to 32 bits, since PyTorch on the CPU has no shifts, adds or
+comparisons for uint32.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .. import device as devmod
+from .. import kernels
 
 H0 = np.array(
     [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -95,3 +106,90 @@ def compress_blocks(blocks: np.ndarray, state_in: np.ndarray, trace: bool = Fals
     if trace:
         return state_out, {"w": w, "state": states}
     return state_out
+
+
+# ---------------------------------------------------------------------------
+# batched fixed-length hashing
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _padding(length: int) -> bytes:
+    """The FIPS 180-4 padding of a message of ``length`` bytes."""
+    pad = bytearray(b"\x80")
+    while (length + len(pad)) % 64 != 56:
+        pad.append(0)
+    return bytes(pad) + (8 * length).to_bytes(8, "big")
+
+
+def _rotr32(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & _M32
+
+
+def sha256_fixed_len_plain(msgs: torch.Tensor) -> torch.Tensor:
+    """(B, L) uint8 -> (B, 32) uint8 in plain PyTorch, on any device.
+    Words are int64 in [0, 2^32): every add and left shift is masked."""
+    if msgs.dtype != torch.uint8 or msgs.dim() != 2:
+        raise ValueError(f"expected (B, L) uint8 messages, got {tuple(msgs.shape)} {msgs.dtype}")
+    B, L = msgs.shape
+    dev = msgs.device
+    pad = torch.tensor(list(_padding(L)), dtype=torch.int64, device=dev)
+    padded = torch.cat([msgs.to(torch.int64), pad.expand(B, -1)], dim=1)
+    b4 = padded.reshape(B, -1, 4)
+    words = (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) | b4[..., 3]
+    k = [int(v) for v in K]
+    state = [torch.full((B,), int(h), dtype=torch.int64, device=dev) for h in H0]
+    for blk in range(words.shape[1] // 16):
+        w = list(words[:, 16 * blk:16 * blk + 16].unbind(1))
+        for t in range(16, 64):
+            s0 = _rotr32(w[t - 15], 7) ^ _rotr32(w[t - 15], 18) ^ (w[t - 15] >> 3)
+            s1 = _rotr32(w[t - 2], 17) ^ _rotr32(w[t - 2], 19) ^ (w[t - 2] >> 10)
+            w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
+        a, b, c, d, e, f, g, h = state
+        for t in range(64):
+            S1 = _rotr32(e, 6) ^ _rotr32(e, 11) ^ _rotr32(e, 25)
+            ch = (e & f) ^ ((e ^ _M32) & g)
+            t1 = (h + S1 + ch + k[t] + w[t]) & _M32
+            S0 = _rotr32(a, 2) ^ _rotr32(a, 13) ^ _rotr32(a, 22)
+            maj = (a & b) ^ (a & c) ^ (b & c)
+            a, b, c, d, e, f, g, h = (t1 + S0 + maj) & _M32, a, b, c, (d + t1) & _M32, e, f, g
+        state = [(x + y) & _M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+    st = torch.stack(state, dim=1)  # (B, 8)
+    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=dev)
+    return ((st[..., None] >> shifts) & 0xFF).reshape(B, 32).to(torch.uint8)
+
+
+def sha256_fixed_len_kernel(msgs: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel (csrc/sha256.cu) on (B, L) uint8 messages on the card."""
+    if not msgs.is_cuda:
+        raise ValueError("sha256_fixed_len_kernel takes a CUDA tensor")
+    if msgs.dtype != torch.uint8 or msgs.dim() != 2:
+        raise ValueError(f"expected (B, L) uint8 messages, got {tuple(msgs.shape)} {msgs.dtype}")
+    msgs = msgs.contiguous()
+    B, L = msgs.shape
+    out = torch.empty((B, 32), dtype=torch.uint8, device=msgs.device)
+    with torch.cuda.device(msgs.device):
+        rc = kernels.lib("sha256").bsx_sha256_fixed_len(
+            msgs.data_ptr(), out.data_ptr(), B, L,
+            torch.cuda.current_stream(msgs.device).cuda_stream)
+    kernels.check(rc, "bsx_sha256_fixed_len")
+    sha256_fixed_len_kernel.launches += 1
+    return out
+
+
+sha256_fixed_len_kernel.launches = 0
+
+
+def sha256_fixed_len(msgs, device=None) -> torch.Tensor:
+    """Batch-hash equal-length messages: (B, L) uint8 -> (B, 32) uint8.
+
+    A tensor stays where it is: on the card the kernel runs, on the CPU the
+    plain version. Anything else (a numpy array, nested ints) goes to
+    ``device`` first, where None is the card."""
+    if isinstance(msgs, torch.Tensor):
+        x = msgs
+    else:
+        x = torch.as_tensor(np.ascontiguousarray(msgs, dtype=np.uint8),
+                            device=devmod.resolve(device))
+    return sha256_fixed_len_kernel(x) if x.is_cuda else sha256_fixed_len_plain(x)

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import device as devmod
 from ..field import goldilocks as gl
 from ..field import ntt as nttmod
 from ..field import extension as ext
@@ -84,13 +85,15 @@ class VerifierKey:
     pre_cap: Optional[list]
 
 
-def build(air: Air, n: int, cfg: "StarkConfig", device):
-    """Commit the preprocessed columns. Returns (ProverKey, VerifierKey);
-    both empty for AIRs without preprocessed columns.
+def build(air: Air, n: int, cfg: "StarkConfig", device=None):
+    """Commit the preprocessed columns on ``device`` (None: the card).
+    Returns (ProverKey, VerifierKey); both empty for AIRs without
+    preprocessed columns.
 
     Memoized per air instance: the columns are a pure function of
     (air, n), so repeated calls for one table (prove, then verify) reuse
     the commitment."""
+    device = devmod.resolve(device)
     if not air.pre_width:
         return ProverKey(None, None, None, None), VerifierKey(None)
     key = (n, cfg.rate_bits, cfg.cap_height, str(device))

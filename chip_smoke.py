@@ -8,8 +8,12 @@ Run from the repository root. It prints one JSON line per phase:
   device        the card, and what nvidia-smi says of its power limit
   build         nvcc seconds for each kernel library, registers and spills
   kernel_check  each kernel against its plain PyTorch version on the card
-                (exact equality: integer field arithmetic), and its time at
-                the prover's full-size shapes beside the plain version's
+                (exact equality: integer arithmetic), and its time at the
+                main paths' shapes beside the plain version's; SHA-256 also
+                against hashlib
+  sha256_bench  ops.sha256.sha256_fixed_len, the entry point the TPU kernel
+                served (bench.py's sha256_hashes_per_s): 2^15 messages of
+                64 bytes hashed on the card, sampled rows against hashlib
   proof_small   the SHA-256 chip (256 rows) and the bytes chip as one system:
                 proved on the card and with device="cpu" (plain versions),
                 identical serde.dumps, verified, tamper probe rejected
@@ -19,6 +23,17 @@ Run from the repository root. It prints one JSON line per phase:
                 digests against hashlib, kernel launches, peak memory
   profile       the same prove again under torch.profiler: device busy
                 time, idle share, the top device kernels
+  circuit_small DataCommitmentCircuit(max_leaves=2) over blocks 10000-10002
+                proved on the card at a small config: the proof's SHA-256
+                equals the recorded digest of the JAX package's proof, the
+                root equals the recorded data commitment, verified, a
+                flipped public byte rejected
+  circuit_full  SubchainMapCircuit(32), the production map job of
+                header_range_1024, over 10000-10004 under the default
+                StarkConfig: witness, traces, prove (cpu 2^17, sha 2^16,
+                bytes 256 rows), verify, tamper probe, the data root against
+                the fixture, kernel launches, peak memory
+  circuit_profile  that prove again under torch.profiler
 
 then the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero without the ok line.
@@ -30,12 +45,16 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
 
 SEED = 0
 N_FULL = 1 << 16
+# recorded mocha-4 chain data (headers, data commitments), read as JSON
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "blobstreamx_tpu", "fixtures", "mocha-4")
 
 # Card rates for the bounds (NVIDIA H100 SXM data sheet and Hopper
 # white paper): 3.35 TB/s of HBM3, and 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -48,6 +67,11 @@ IMAD_PER_MODMUL = 4
 # Poseidon: 8 full rounds of 12 S-boxes (4 multiplies each) and a 144-term
 # MDS, 22 partial rounds of one S-box and the MDS
 MODMUL_PER_PERMUTATION = 8 * (12 * 4 + 144) + 22 * (4 + 144)
+# SHA-256, the least 32-bit instructions of one compression, a 3-input xor
+# or add counted as one: a round is 6 rotates, 2 xors, ch, maj and 4 adds
+# (14); a schedule word 4 rotates/shifts, 2 xors and 2 adds (8, 48 of them);
+# then 8 adds into the state
+SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 8 + 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -67,10 +91,10 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, modmuls: float):
+def bound(bytes_moved: float, modmuls: float = 0, int32_ops: float = 0):
     """Least time on the card (ms) and what sets it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = modmuls * IMAD_PER_MODMUL / INT32_OPS_PER_S * 1e3
+    t_ops = (modmuls * IMAD_PER_MODMUL + int32_ops) / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -105,18 +129,36 @@ def phase_build(kernels):
 
 
 def ntt_main_path_ms(torch, gl, nttmod, rng, dev):
-    """Kernel time at every NTT shape of the full-size prove (the SHA-256
-    table: 111 main, 16 aux, 16 quotient columns; 2^16 rows, 2^19 LDE)."""
+    """Kernel time at every NTT shape of the full-size proves: the SHA-256
+    table (111 main, 16 aux, 16 quotient columns; 2^16 rows, 2^19 LDE) and
+    the map job's cpu table (5 main, 33 preprocessed, 38 aux, 16 quotient
+    columns; 2^17 rows, 2^20 LDE)."""
     shapes = [("main interpolate", 111, 16, True), ("main LDE", 111, 19, False),
               ("aux interpolate", 16, 16, True), ("aux LDE", 16, 19, False),
               ("quotient interpolate", 2, 19, True), ("quotient chunks", 16, 16, False),
-              ("FRI final", 2, 3, True)]
+              ("FRI final", 2, 3, True),
+              ("cpu main LDE", 5, 20, False), ("cpu pre LDE", 33, 20, False),
+              ("cpu aux interpolate", 38, 17, True), ("cpu aux LDE", 38, 20, False),
+              ("cpu quotient interpolate", 2, 20, True), ("cpu quotient chunks", 16, 17, False)]
     out = []
     for what, b, log_n, inverse in shapes:
         x = rand_field(torch, gl, rng, (b, 1 << log_n), dev)
+        bound_ms, bound_by = ntt_bound(b, 1 << log_n)
         out.append({"call": what, "shape": [b, 1 << log_n], "inverse": inverse,
-                    "ms": cuda_ms(torch, lambda: nttmod.ntt_kernel(x, inverse), 5)})
+                    "ms": cuda_ms(torch, lambda: nttmod.ntt_kernel(x, inverse), 5),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
     return out
+
+
+def ntt_bound(batch: int, n: int):
+    """One read and one write of the batch; n/2 multiplies a stage."""
+    return bound(2 * batch * n * 8, batch * (n // 2) * (n.bit_length() - 1))
+
+
+def poseidon_bound(rows: int, width: int):
+    """Leaf hash of (rows, width): read the rows, write 4-element digests;
+    ceil(width / 8) permutations a row."""
+    return bound(rows * (width + 4) * 8, rows * -(-width // 8) * MODMUL_PER_PERMUTATION)
 
 
 def poseidon_main_path_ms(torch, gl, pos, rng, dev):
@@ -124,14 +166,61 @@ def poseidon_main_path_ms(torch, gl, pos, rng, dev):
     hashes of each LDE (rows read in place) and one Merkle level."""
     out = []
     for what, rows, width in (("main leaves", 1 << 19, 111), ("aux leaves", 1 << 19, 16),
-                              ("pre leaves", 1 << 19, 21), ("FRI layer-0 leaves", 1 << 18, 4)):
+                              ("pre leaves", 1 << 19, 21), ("FRI layer-0 leaves", 1 << 18, 4),
+                              ("cpu main leaves", 1 << 20, 5), ("cpu pre leaves", 1 << 20, 33),
+                              ("cpu aux leaves", 1 << 20, 38),
+                              ("cpu FRI layer-0 leaves", 1 << 19, 4)):
         m = rand_field(torch, gl, rng, (width, rows), dev)
+        bound_ms, bound_by = poseidon_bound(rows, width)
         out.append({"call": what, "shape": [rows, width],
-                    "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(m.t()), 3)})
+                    "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(m.t()), 3),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
     level = rand_field(torch, gl, rng, (1 << 18, 8), dev)
+    bound_ms, bound_by = poseidon_bound(1 << 18, 8)
     out.append({"call": "Merkle level (2^19 -> 2^18)", "shape": [1 << 18, 8],
-                "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(level), 5)})
+                "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(level), 5),
+                "bound_ms": bound_ms, "bound_by": bound_by})
     return out
+
+
+def hashlib_rows(msgs, rows):
+    """hashlib's digests of the chosen rows of a (B, L) uint8 numpy array."""
+    return [hashlib.sha256(msgs[i].tobytes()).digest() for i in rows]
+
+
+def sha256_check(torch, np, rng, dev):
+    """The SHA-256 kernel against its plain version (torch.equal) and
+    sampled rows against hashlib, at the bench shape, one block, three
+    blocks and a ragged batch; then its time at 2^15 and 2^20 messages."""
+    from blobstreamx_tpu_torch.ops import sha256 as sha
+
+    cases, equal = [], True
+    for B, L in ((1 << 15, 64), (130, 55), (64, 150), (1100, 64)):
+        msgs = rng.integers(0, 256, size=(B, L), dtype=np.uint8)
+        x = torch.from_numpy(msgs).to(dev)
+        got = sha.sha256_fixed_len_kernel(x)
+        same = torch.equal(got, sha.sha256_fixed_len_plain(x))
+        rows = sorted({0, B - 1, *rng.integers(0, B, size=14).tolist()})
+        host = got.cpu().numpy()
+        hl = all(bytes(host[i]) == d for i, d in zip(rows, hashlib_rows(msgs, rows)))
+        cases.append({"B": B, "L": L, "equal_plain": same, "hashlib_rows": len(rows),
+                      "equal_hashlib": hl})
+        equal = equal and same and hl
+    timed = {}
+    for B in (1 << 15, 1 << 20):
+        L = 64
+        x = torch.from_numpy(rng.integers(0, 256, size=(B, L), dtype=np.uint8)).to(dev)
+        ms = cuda_ms(torch, lambda: sha.sha256_fixed_len_kernel(x), 20)
+        plain_ms = cuda_ms(torch, lambda: sha.sha256_fixed_len_plain(x), 2)
+        n_blocks = (L + 8) // 64 + 1
+        bound_ms, bound_by = bound(B * (L + 32), int32_ops=B * n_blocks * SHA_OPS_PER_BLOCK)
+        timed[str(B)] = dict(shape=[B, L], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+    bench = timed[str(1 << 15)]
+    return dict(max_abs_err=0.0 if equal else 1.0, ms=bench["ms"],
+                plain_ms=bench["plain_ms"], bound_ms=bench["bound_ms"],
+                bound_by=bench["bound_by"], shape=bench["shape"], cases=cases,
+                timed=timed)
 
 
 def phase_kernel_check(torch, np):
@@ -163,7 +252,7 @@ def phase_kernel_check(torch, np):
     ntt_err = max(ntt_err, max_abs_err(torch, nttmod.ntt_kernel(x), ref))
     del ref
     b, n = x.shape
-    bound_ms, bound_by = bound(2 * b * n * 8, b * (n // 2) * 19)
+    bound_ms, bound_by = ntt_bound(b, n)
     results["ntt"] = dict(max_abs_err=ntt_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           shape=[b, n], cases=ntt_cases,
@@ -193,16 +282,40 @@ def phase_kernel_check(torch, np):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     pos_err = max(pos_err, max_abs_err(torch, pos.hash_no_pad_kernel(x.t()), ref))
-    perms = n * -(-b // pos.RATE)
-    bound_ms, bound_by = bound(n * (b + pos.DIGEST) * 8, perms * MODMUL_PER_PERMUTATION)
+    bound_ms, bound_by = poseidon_bound(n, b)
     results["poseidon"] = dict(max_abs_err=pos_err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                shape=[n, b], permute_py_equal=py_equal,
                                main_path_ms=poseidon_main_path_ms(torch, gl, pos, rng, dev))
+    del x, ref
+    results["sha256"] = sha256_check(torch, np, rng, dev)
     emit("kernel_check", **results)
-    if ntt_err or pos_err:
+    if ntt_err or pos_err or results["sha256"]["max_abs_err"]:
         raise SystemExit("a kernel disagrees with its plain version")
     return results
+
+
+def phase_sha256_bench(torch, np):
+    """The entry point at the bench shape, counts zeroed just before."""
+    from blobstreamx_tpu_torch.ops import sha256 as sha
+
+    msgs = np.random.default_rng(2).integers(0, 256, size=(1 << 15, 64), dtype=np.uint8)
+    torch.cuda.synchronize()
+    sha.sha256_fixed_len_kernel.launches = 0
+    t0 = time.perf_counter()
+    digests = sha.sha256_fixed_len(msgs)  # numpy in: hashed on the card
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = sha.sha256_fixed_len_kernel.launches
+    host = digests.cpu().numpy()
+    rows = list(range(0, 1 << 15, 1 << 11))
+    ok = (digests.is_cuda and host.shape == (1 << 15, 32)
+          and all(bytes(host[i]) == d for i, d in zip(rows, hashlib_rows(msgs, rows))))
+    emit("sha256_bench", messages=1 << 15, length=64, launches=launches, seconds=seconds,
+         hashlib_rows=len(rows), equal_hashlib=ok)
+    if not (ok and launches):
+        raise SystemExit("sha256_bench failed")
+    return launches
 
 
 def sha_public_messages(ch, messages_bytes, blocks):
@@ -348,22 +461,22 @@ def phase_proof_full(torch, np, dev, n_rows: int = N_FULL, n_blocks: int = 32):
          proof_sha256=hashlib.sha256(text.encode()).hexdigest())
     if not (ok and rejected and all(launches.values())):
         raise SystemExit("proof_full failed")
-    if dev.type == "cuda":
-        phase_profile(torch, spec, cfg, dev, prove_s)
+    phase_profile(torch, "profile",
+                  lambda: system.prove_system([spec], cfg, device=dev), prove_s)
     return launches
 
 
-def phase_profile(torch, spec, cfg, dev, prove_s: float):
-    """A second prove of the full table under torch.profiler: device busy
-    time (the sum of kernel times: one stream, so they do not overlap)
-    against the unprofiled prove's wall time, and the top device kernels."""
+def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0):
+    """A second prove under torch.profiler: device busy time (the sum of
+    kernel times: one stream, so they do not overlap) against the
+    unprofiled prove's wall time, and the top device kernels. ``host_s``
+    is the part of prove_s that is host-only work (witness and traces)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from blobstreamx_tpu_torch.proof import system
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        system.prove_system([spec], cfg, device=dev)
+        prove()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -378,11 +491,114 @@ def phase_profile(torch, spec, cfg, dev, prove_s: float):
     rows.sort(key=lambda r: -r[1])
     ours = {name: {"device_s": sum(us for k, us, _ in rows if tag in k) / 1e6,
                    "launches": sum(c for k, _, c in rows if tag in k)}
-            for name, tag in (("ntt", "ntt_"), ("poseidon", "poseidon_kernel"))}
-    emit("profile", device_busy_s=busy_s, prove_s_unprofiled=prove_s,
+            for name, tag in (("ntt", "ntt_"), ("poseidon", "poseidon_kernel"),
+                              ("sha256", "sha256_kernel"))}
+    emit(phase, device_busy_s=busy_s, prove_s_unprofiled=prove_s,
          device_idle_share=(1 - busy_s / prove_s) if busy_s else None,
+         host_only_s=host_s,
+         device_idle_share_without_host_only=(1 - busy_s / (prove_s - host_s))
+         if busy_s else None,
          device_kernels=sum(c for _, _, c in rows), ours=ours,
          top=[{"kernel": k[:80], "device_s": us / 1e6, "count": c} for k, us, c in rows[:8]])
+
+
+def phase_circuit_small(torch, dev):
+    """The smallest circuit on the card against the JAX package's proof,
+    through its recorded digest (this machine has no JAX)."""
+    from blobstreamx_tpu_torch.circuits.data_commitment import DataCommitmentCircuit
+    from blobstreamx_tpu_torch.circuits.input import InputDataFetcher
+    from blobstreamx_tpu_torch.proof import serde, stark
+    from blobstreamx_tpu_torch.testing import reference_digests as refs
+
+    ref = refs.DATA_COMMITMENT_2
+    cfg = stark.StarkConfig(**ref["config"])
+    start, end = ref["start_block"], ref["end_block"]
+    fetcher = InputDataFetcher(FIXTURES)
+    circuit = DataCommitmentCircuit(2, fetcher)
+    t0 = time.perf_counter()
+    proof, publics, root = circuit.prove(start, end, cfg, device=dev)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    text = serde.dumps(proof)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    root_ok = root == fetcher.get_data_commitment(start, end)
+    t0 = time.perf_counter()
+    ok = circuit.verify(serde.loads(text), publics, cfg, device=dev)
+    verify_s = time.perf_counter() - t0
+    bad = list(publics)
+    bad[80] ^= 1  # first byte of the data commitment
+    rejected = not circuit.verify(proof, bad, cfg, device=dev)
+    emit("circuit_small", circuit=ref["circuit"], blocks=[start, end], config=ref["config"],
+         proof_sha256=digest, reference_sha256=ref["proof_sha256"],
+         equal_reference=digest == ref["proof_sha256"], root=root.hex(), root_ok=root_ok,
+         verified=ok, tamper_rejected=rejected, prove_s=prove_s, verify_s=verify_s)
+    if not (digest == ref["proof_sha256"] and root_ok and ok and rejected):
+        raise SystemExit("circuit_small failed")
+
+
+def phase_circuit_full(torch, np, dev, batch_size: int = 32, start: int = 10000,
+                       end: int = 10004):
+    """The production map job, proved end to end through the circuit's entry
+    point under the default StarkConfig."""
+    from blobstreamx_tpu_torch.circuits import map_job
+    from blobstreamx_tpu_torch.circuits.input import InputDataFetcher
+    from blobstreamx_tpu_torch.field import ntt as nttmod
+    from blobstreamx_tpu_torch.ops import poseidon as pos
+    from blobstreamx_tpu_torch.ops import sha256 as sha
+    from blobstreamx_tpu_torch.proof import serde, stark, system
+
+    cfg = stark.StarkConfig()
+    fetcher = InputDataFetcher(FIXTURES)
+    t0 = time.perf_counter()
+    job = map_job.SubchainMapCircuit(batch_size, fetcher)
+    circuit = job.circuit
+    build_s = time.perf_counter() - t0
+    header = fetcher.get_header(end).hash()
+    t0 = time.perf_counter()
+    pks, vks = circuit.build_keys(cfg, dev)  # the preprocessed oracles: set-up
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    nttmod.ntt_kernel.launches = 0
+    pos.permute_kernel.launches = 0
+    pos.hash_no_pad_kernel.launches = 0
+    sha.sha256_fixed_len_kernel.launches = 0
+    timer = system.PhaseTimer()
+    t0 = time.perf_counter()
+    proof, publics = job.prove(start, end, header, cfg, pks=pks, device=dev, timer=timer)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = {"ntt": nttmod.ntt_kernel.launches, "poseidon": pos.launches(),
+                "sha256": sha.sha256_fixed_len_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    root = bytes(publics[map_job.OUT_DATA_ROOT])
+    root_ok = root == fetcher.get_data_commitment(start, end)
+    rows = {name: int(tp.n_rows) for name, tp in zip(circuit._table_names(), proof.table_proofs)}
+    text = serde.dumps(proof)
+    t0 = time.perf_counter()
+    ok = job.verify(proof, publics, cfg, vks=vks, device=dev)
+    verify_s = time.perf_counter() - t0
+    bad = list(publics)
+    bad[map_job.OUT_DATA_ROOT.start] ^= 1
+    rejected = not job.verify(proof, bad, cfg, vks=vks, device=dev)
+    phases = dict(timer.seconds)
+    emit("circuit_full", circuit=f"SubchainMapCircuit({batch_size})", blocks=[start, end],
+         config=vars(cfg), rows=rows, cpu_rows_used=len(circuit.b.rows),
+         compressions=sum(len(c.blocks_word_wires) for c in circuit.b.sha_calls),
+         sha_calls=len(circuit.b.sha_calls), build_s=build_s, keys_s=keys_s,
+         witness_s=phases.get("witness"), traces_s=phases.get("traces"), prove_s=prove_s,
+         system_prove_s=prove_s - phases.get("witness", 0) - phases.get("traces", 0),
+         phases_s=phases, verify_s=verify_s, verified=ok, tamper_rejected=rejected,
+         root=root.hex(), root_ok=root_ok, launches=launches, max_memory_allocated=peak,
+         proof_json_bytes=len(text), proof_sha256=hashlib.sha256(text.encode()).hexdigest())
+    if not (root_ok and ok and rejected and launches["ntt"] and launches["poseidon"]):
+        raise SystemExit("circuit_full failed")
+    phase_profile(torch, "circuit_profile",
+                  lambda: job.prove(start, end, header, cfg, pks=pks, device=dev),
+                  prove_s, host_s=phases.get("witness", 0) + phases.get("traces", 0))
+    return launches
 
 
 def main() -> int:
@@ -399,15 +615,23 @@ def main() -> int:
     phase_build(kernels)
     checks = phase_kernel_check(torch, np)
     dev = torch.device("cuda")
+    paths = {"sha256_bench": {"sha256": phase_sha256_bench(torch, np)}}
     phase_proof_small(torch, np, dev)
-    launches = phase_proof_full(torch, np, dev)
+    paths["proof_full"] = phase_proof_full(torch, np, dev)
+    phase_circuit_small(torch, dev)
+    paths["circuit_full"] = phase_circuit_full(torch, np, dev)
+    # each kernel's launches on this slice's path: the circuit prove for the
+    # NTT and Poseidon, the bench entry point for SHA-256
+    main = {"ntt": "circuit_full", "poseidon": "circuit_full", "sha256": "sha256_bench"}
     table = []
     for name, replaces in (("ntt", "blobstreamx_tpu/ops/pallas/ntt.py:78"),
-                           ("poseidon", "blobstreamx_tpu/ops/pallas/poseidon.py:113")):
+                           ("poseidon", "blobstreamx_tpu/ops/pallas/poseidon.py:113"),
+                           ("sha256", "blobstreamx_tpu/ops/pallas/sha256.py:40")):
         c = checks[name]
         table.append({"name": name, "route": "cuda",
                       "source": f"blobstreamx_tpu_torch/csrc/{name}.cu",
-                      "replaces": replaces, "launches": launches[name],
+                      "replaces": replaces, "launches": paths[main[name]][name],
+                      "launches_by_path": {p: l.get(name, 0) for p, l in paths.items()},
                       "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                       "bound_by": c["bound_by"], "library_ms": None})

@@ -135,25 +135,51 @@ def test_converters_round_trip_reference_limbs():
 
 
 def test_port_imports_no_jax():
-    """The port runs on a machine without JAX: no source line imports jax
-    or the JAX package, and importing every module loads neither."""
+    """The port runs on a machine without JAX: no import statement of the
+    package or of chip_smoke.py, at any depth (chip_smoke imports inside its
+    phases), names jax or the JAX package, and importing every module of
+    the package and every module chip_smoke.py names loads neither."""
+    import ast
     import pathlib
-    import re
     import subprocess
     import sys
 
     root = pathlib.Path(__file__).resolve().parents[1]
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|blobstreamx_tpu)\b", re.M)
     package = root / "blobstreamx_tpu_torch"
     files = sorted(f for f in package.rglob("*.py")
                    if f.relative_to(package).parts[0] != "build") + [root / "chip_smoke.py"]
-    assert [str(f) for f in files if pattern.search(f.read_text())] == []
-    modules = ["blobstreamx_tpu_torch." + ".".join(f.relative_to(root / "blobstreamx_tpu_torch")
-                                                   .with_suffix("").parts)
-               for f in files[:-1] if f.name != "__init__.py"] + ["chip_smoke"]
+    modules = {"chip_smoke"}
+    for f in files:
+        parts = ((f.relative_to(root).with_suffix("").parts) if f.parent != root
+                 else (f.stem,))
+        if f.name == "__init__.py":
+            parts = parts[:-1]
+        modules.add(".".join(parts))
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:  # relative: inside the package
+                    base = parts[:len(parts) - node.level + (f.name == "__init__.py")]
+                    names = [".".join(base + ((node.module,) if node.module else ()))]
+                else:
+                    names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "blobstreamx_tpu"), \
+                    f"{f.relative_to(root)} imports {name}"
+                if name.split(".")[0] == "blobstreamx_tpu_torch":
+                    modules.add(name)
+    for new in ("frontend.builder", "frontend.witness", "circuits.map_job",
+                "circuits.data_commitment", "circuits.input", "chips.cpu",
+                "tendermint.header", "tendermint.merkle", "field.goldilocks_host",
+                "testing.reference_digests", "ops.sha256"):
+        assert "blobstreamx_tpu_torch." + new in modules
     code = ("import importlib, sys\n"
-            f"for m in {modules!r}: importlib.import_module(m)\n"
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'blobstreamx_tpu')))")
+            f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'blobstreamx_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -171,3 +197,61 @@ def test_entry_points_refuse_missing_card():
         with pytest.raises(RuntimeError):
             device.resolve(None)
     assert device.resolve("cpu").type == "cpu"
+
+
+def _entry_point_calls():
+    """Each public function of the port that takes ``device``, called with
+    the default (None: the card) on a small input."""
+    from blobstreamx_tpu_torch.chips import bytes as bytes_chip
+    from blobstreamx_tpu_torch.field import ntt
+    from blobstreamx_tpu_torch.frontend import builder
+    from blobstreamx_tpu_torch.ops import poseidon, sha256
+    from blobstreamx_tpu_torch.proof import stark, system
+
+    cfg = stark.StarkConfig(rate_bits=2, cap_height=0, num_query_rounds=1, pow_bits=0,
+                            final_poly_bits=1)
+    air = bytes_chip.BytesAir()
+    spec = system.TableSpec("bytes", air, bytes_chip.build_trace(
+        np.zeros(256, dtype=np.uint64)), [])
+    b = builder.CircuitBuilder()
+    b.evm_write_bytes32(b.evm_read_bytes32())
+    circuit = b.build()
+    return {
+        "ntt.ntt": lambda: ntt.ntt(np.zeros(4, dtype=np.uint64)),
+        "ntt.lde": lambda: ntt.lde(np.zeros(4, dtype=np.uint64), 1),
+        "ntt.interpolate_coeffs": lambda: ntt.interpolate_coeffs(np.zeros(4, dtype=np.uint64)),
+        "poseidon.permute": lambda: poseidon.permute(np.zeros(12, dtype=np.uint64)),
+        "poseidon.hash_no_pad": lambda: poseidon.hash_no_pad(np.zeros(8, dtype=np.uint64)),
+        "poseidon.hash_two_to_one": lambda: poseidon.hash_two_to_one(
+            np.zeros(4, dtype=np.uint64), np.zeros(4, dtype=np.uint64)),
+        "sha256.sha256_fixed_len": lambda: sha256.sha256_fixed_len(
+            np.zeros((1, 4), dtype=np.uint8)),
+        "stark.build": lambda: stark.build(air, 256, cfg),
+        "system.prove_system": lambda: system.prove_system([spec], cfg),
+        "system.verify_system": lambda: system.verify_system(
+            [air], [[]], system.SystemProof([], []), cfg),
+        "system.check_bus_balance": lambda: system.check_bus_balance([spec]),
+        "CompiledCircuit.prove": lambda: circuit.prove({}, cfg),
+        "CompiledCircuit.verify": lambda: circuit.verify(None, [0] * 64, cfg),
+        "CompiledCircuit.build_keys": lambda: circuit.build_keys(cfg),
+    }
+
+
+ENTRY_POINTS = ["ntt.ntt", "ntt.lde", "ntt.interpolate_coeffs", "poseidon.permute",
+                "poseidon.hash_no_pad", "poseidon.hash_two_to_one",
+                "sha256.sha256_fixed_len", "stark.build", "system.prove_system",
+                "system.verify_system", "system.check_bus_balance",
+                "CompiledCircuit.prove", "CompiledCircuit.verify",
+                "CompiledCircuit.build_keys"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_raises_without_a_card(name):
+    """Called without ``device``, every entry point asks for the card and
+    raises where there is none; none runs on the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    calls = _entry_point_calls()
+    assert sorted(calls) == sorted(ENTRY_POINTS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
