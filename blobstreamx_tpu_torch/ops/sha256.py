@@ -44,15 +44,16 @@ K = np.array(
 )
 
 
+def padding(length: int) -> bytes:
+    """The FIPS 180-4 padding of a message of ``length`` bytes: 0x80, zeros
+    to 56 mod 64, then the bit length as 8 big-endian bytes."""
+    return b"\x80" + bytes((55 - length) % 64) + (8 * length).to_bytes(8, "big")
+
+
 def pad_message(msg: bytes) -> np.ndarray:
     """FIPS-180-4 pad -> (n_blocks, 16) uint32 big-endian words."""
-    length = len(msg)
-    padded = bytearray(msg)
-    padded.append(0x80)
-    while len(padded) % 64 != 56:
-        padded.append(0)
-    padded += (8 * length).to_bytes(8, "big")
-    arr = np.frombuffer(bytes(padded), dtype=">u4").astype(np.uint32)
+    padded = bytes(msg) + padding(len(msg))
+    arr = np.frombuffer(padded, dtype=">u4").astype(np.uint32)
     return arr.reshape(-1, 16)
 
 
@@ -115,14 +116,6 @@ def compress_blocks(blocks: np.ndarray, state_in: np.ndarray, trace: bool = Fals
 _M32 = 0xFFFFFFFF
 
 
-def _padding(length: int) -> bytes:
-    """The FIPS 180-4 padding of a message of ``length`` bytes."""
-    pad = bytearray(b"\x80")
-    while (length + len(pad)) % 64 != 56:
-        pad.append(0)
-    return bytes(pad) + (8 * length).to_bytes(8, "big")
-
-
 def _rotr32(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((x >> n) | (x << (32 - n))) & _M32
 
@@ -134,7 +127,7 @@ def sha256_fixed_len_plain(msgs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected (B, L) uint8 messages, got {tuple(msgs.shape)} {msgs.dtype}")
     B, L = msgs.shape
     dev = msgs.device
-    pad = torch.tensor(list(_padding(L)), dtype=torch.int64, device=dev)
+    pad = torch.tensor(list(padding(L)), dtype=torch.int64, device=dev)
     padded = torch.cat([msgs.to(torch.int64), pad.expand(B, -1)], dim=1)
     b4 = padded.reshape(B, -1, 4)
     words = (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) | b4[..., 3]

@@ -69,9 +69,10 @@ IMAD_PER_MODMUL = 4
 MODMUL_PER_PERMUTATION = 8 * (12 * 4 + 144) + 22 * (4 + 144)
 # SHA-256, the least 32-bit instructions of one compression, a 3-input xor
 # or add counted as one: a round is 6 rotates, 2 xors, ch, maj and 4 adds
-# (14); a schedule word 4 rotates/shifts, 2 xors and 2 adds (8, 48 of them);
-# then 8 adds into the state
-SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 8 + 8
+# (14); a schedule word 4 rotates and 2 shifts (sigma0 and sigma1 are two
+# rotates and a shift each), 2 xors and 2 adds (10, 48 of them); then 8 adds
+# into the state
+SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -132,7 +133,9 @@ def ntt_main_path_ms(torch, gl, nttmod, rng, dev):
     """Kernel time at every NTT shape of the full-size proves: the SHA-256
     table (111 main, 16 aux, 16 quotient columns; 2^16 rows, 2^19 LDE) and
     the map job's cpu table (5 main, 33 preprocessed, 38 aux, 16 quotient
-    columns; 2^17 rows, 2^20 LDE)."""
+    columns; 2^17 rows, 2^20 LDE). Each timed call is held exactly against
+    the plain version on the same tensor; returns the rows and the largest
+    error."""
     shapes = [("main interpolate", 111, 16, True), ("main LDE", 111, 19, False),
               ("aux interpolate", 16, 16, True), ("aux LDE", 16, 19, False),
               ("quotient interpolate", 2, 19, True), ("quotient chunks", 16, 16, False),
@@ -140,14 +143,16 @@ def ntt_main_path_ms(torch, gl, nttmod, rng, dev):
               ("cpu main LDE", 5, 20, False), ("cpu pre LDE", 33, 20, False),
               ("cpu aux interpolate", 38, 17, True), ("cpu aux LDE", 38, 20, False),
               ("cpu quotient interpolate", 2, 20, True), ("cpu quotient chunks", 16, 17, False)]
-    out = []
+    out, worst = [], 0.0
     for what, b, log_n, inverse in shapes:
         x = rand_field(torch, gl, rng, (b, 1 << log_n), dev)
         bound_ms, bound_by = ntt_bound(b, 1 << log_n)
+        err = max_abs_err(torch, nttmod.ntt_kernel(x, inverse), nttmod.ntt_plain(x, inverse))
+        worst = max(worst, err)
         out.append({"call": what, "shape": [b, 1 << log_n], "inverse": inverse,
                     "ms": cuda_ms(torch, lambda: nttmod.ntt_kernel(x, inverse), 5),
-                    "bound_ms": bound_ms, "bound_by": bound_by})
-    return out
+                    "bound_ms": bound_ms, "bound_by": bound_by, "equal_plain": err == 0})
+    return out, worst
 
 
 def ntt_bound(batch: int, n: int):
@@ -163,24 +168,26 @@ def poseidon_bound(rows: int, width: int):
 
 def poseidon_main_path_ms(torch, gl, pos, rng, dev):
     """Kernel time at the Poseidon shapes of the full-size prove: leaf
-    hashes of each LDE (rows read in place) and one Merkle level."""
-    out = []
-    for what, rows, width in (("main leaves", 1 << 19, 111), ("aux leaves", 1 << 19, 16),
-                              ("pre leaves", 1 << 19, 21), ("FRI layer-0 leaves", 1 << 18, 4),
-                              ("cpu main leaves", 1 << 20, 5), ("cpu pre leaves", 1 << 20, 33),
-                              ("cpu aux leaves", 1 << 20, 38),
-                              ("cpu FRI layer-0 leaves", 1 << 19, 4)):
-        m = rand_field(torch, gl, rng, (width, rows), dev)
+    hashes of each LDE (rows read in place) and one Merkle level. Each
+    timed call is held exactly against the plain version on the same
+    tensor; returns the rows and the largest error. The main LDE's leaves
+    (2^19 x 111) are timed and checked in phase_kernel_check."""
+    out, worst = [], 0.0
+    for what, rows, width, col_major in (
+            ("aux leaves", 1 << 19, 16, True), ("pre leaves", 1 << 19, 21, True),
+            ("FRI layer-0 leaves", 1 << 18, 4, True), ("cpu main leaves", 1 << 20, 5, True),
+            ("cpu pre leaves", 1 << 20, 33, True), ("cpu aux leaves", 1 << 20, 38, True),
+            ("cpu FRI layer-0 leaves", 1 << 19, 4, True),
+            ("Merkle level (2^19 -> 2^18)", 1 << 18, 8, False)):
+        m = rand_field(torch, gl, rng, (width, rows) if col_major else (rows, width), dev)
+        leaves = m.t() if col_major else m
         bound_ms, bound_by = poseidon_bound(rows, width)
+        err = max_abs_err(torch, pos.hash_no_pad_kernel(leaves), pos.hash_no_pad_plain(leaves))
+        worst = max(worst, err)
         out.append({"call": what, "shape": [rows, width],
-                    "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(m.t()), 3),
-                    "bound_ms": bound_ms, "bound_by": bound_by})
-    level = rand_field(torch, gl, rng, (1 << 18, 8), dev)
-    bound_ms, bound_by = poseidon_bound(1 << 18, 8)
-    out.append({"call": "Merkle level (2^19 -> 2^18)", "shape": [1 << 18, 8],
-                "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(level), 5),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-    return out
+                    "ms": cuda_ms(torch, lambda: pos.hash_no_pad_kernel(leaves), 3),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "equal_plain": err == 0})
+    return out, worst
 
 
 def hashlib_rows(msgs, rows):
@@ -235,7 +242,7 @@ def phase_kernel_check(torch, np):
     # NTT: every size class, both directions, a batch of 3
     ntt_err = 0.0
     ntt_cases = []
-    for log_n in (4, 10, 12, 16, 19):
+    for log_n in (4, 10, 12, 16, 19, 20):
         x = rand_field(torch, gl, rng, (3, 1 << log_n), dev)
         for inverse in (False, True):
             err = max_abs_err(torch, nttmod.ntt_kernel(x, inverse),
@@ -253,10 +260,11 @@ def phase_kernel_check(torch, np):
     del ref
     b, n = x.shape
     bound_ms, bound_by = ntt_bound(b, n)
+    main_path, err = ntt_main_path_ms(torch, gl, nttmod, rng, dev)
+    ntt_err = max(ntt_err, err)
     results["ntt"] = dict(max_abs_err=ntt_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          shape=[b, n], cases=ntt_cases,
-                          main_path_ms=ntt_main_path_ms(torch, gl, nttmod, rng, dev))
+                          shape=[b, n], cases=ntt_cases, main_path_ms=main_path)
 
     # Poseidon: permutation batches, sponge layouts, and the python ints
     pos_err = 0.0
@@ -281,13 +289,18 @@ def phase_kernel_check(torch, np):
     ref = pos.hash_no_pad_plain(x.t())
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    pos_err = max(pos_err, max_abs_err(torch, pos.hash_no_pad_kernel(x.t()), ref))
+    err = max_abs_err(torch, pos.hash_no_pad_kernel(x.t()), ref)
+    pos_err = max(pos_err, err)
     bound_ms, bound_by = poseidon_bound(n, b)
+    main_leaves = {"call": "main leaves", "shape": [n, b], "ms": ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "equal_plain": err == 0}
+    del x, ref
+    main_path, err = poseidon_main_path_ms(torch, gl, pos, rng, dev)
+    pos_err = max(pos_err, err)
     results["poseidon"] = dict(max_abs_err=pos_err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                shape=[n, b], permute_py_equal=py_equal,
-                               main_path_ms=poseidon_main_path_ms(torch, gl, pos, rng, dev))
-    del x, ref
+                               main_path_ms=[main_leaves] + main_path)
     results["sha256"] = sha256_check(torch, np, rng, dev)
     emit("kernel_check", **results)
     if ntt_err or pos_err or results["sha256"]["max_abs_err"]:

@@ -32,7 +32,7 @@ def field(seed: int, shape, dev) -> torch.Tensor:
     return convert.ints_to_tensor(values, dev)
 
 
-@pytest.mark.parametrize("log_n", [4, 12, 13, 17])
+@pytest.mark.parametrize("log_n", [4, 12, 13, 17, 20])
 def test_ntt_kernel_matches_plain(card, log_n):
     x = field(log_n, (3, 1 << log_n), card)
     for inverse in (False, True):
@@ -50,7 +50,8 @@ def test_poseidon_permute_kernel_matches_plain(card, batch):
 
 
 @pytest.mark.parametrize("rows,width,col_major", [(4096, 111, True), (2048, 8, False),
-                                                  (300, 21, True)])
+                                                  (300, 21, True), (1 << 20, 5, True),
+                                                  (1 << 20, 38, True)])
 def test_poseidon_hash_no_pad_kernel_matches_plain(card, rows, width, col_major):
     m = field(rows + width, (width, rows) if col_major else (rows, width), card)
     leaves = m.t() if col_major else m

@@ -1,6 +1,8 @@
 """The port's Goldilocks and GF(p^2) arithmetic against the JAX package's,
 element for element, on seeded inputs with edge values; and the converters."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -203,6 +205,7 @@ def _entry_point_calls():
     """Each public function of the port that takes ``device``, called with
     the default (None: the card) on a small input."""
     from blobstreamx_tpu_torch.chips import bytes as bytes_chip
+    from blobstreamx_tpu_torch.circuits import data_commitment, input, map_job
     from blobstreamx_tpu_torch.field import ntt
     from blobstreamx_tpu_torch.frontend import builder
     from blobstreamx_tpu_torch.ops import poseidon, sha256
@@ -216,6 +219,8 @@ def _entry_point_calls():
     b = builder.CircuitBuilder()
     b.evm_write_bytes32(b.evm_read_bytes32())
     circuit = b.build()
+    fixtures = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "blobstreamx_tpu", "fixtures", "mocha-4")
     return {
         "ntt.ntt": lambda: ntt.ntt(np.zeros(4, dtype=np.uint64)),
         "ntt.lde": lambda: ntt.lde(np.zeros(4, dtype=np.uint64), 1),
@@ -234,6 +239,10 @@ def _entry_point_calls():
         "CompiledCircuit.prove": lambda: circuit.prove({}, cfg),
         "CompiledCircuit.verify": lambda: circuit.verify(None, [0] * 64, cfg),
         "CompiledCircuit.build_keys": lambda: circuit.build_keys(cfg),
+        "DataCommitmentCircuit.prove": lambda: data_commitment.DataCommitmentCircuit(
+            2, input.InputDataFetcher(fixtures)).prove(10000, 10002, cfg),
+        "SubchainMapCircuit.prove": lambda: map_job.SubchainMapCircuit(
+            2, input.InputDataFetcher(fixtures)).prove(10000, 10004, bytes(32), cfg),
     }
 
 
@@ -242,7 +251,8 @@ ENTRY_POINTS = ["ntt.ntt", "ntt.lde", "ntt.interpolate_coeffs", "poseidon.permut
                 "sha256.sha256_fixed_len", "stark.build", "system.prove_system",
                 "system.verify_system", "system.check_bus_balance",
                 "CompiledCircuit.prove", "CompiledCircuit.verify",
-                "CompiledCircuit.build_keys"]
+                "CompiledCircuit.build_keys", "DataCommitmentCircuit.prove",
+                "SubchainMapCircuit.prove"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

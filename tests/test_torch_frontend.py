@@ -255,22 +255,3 @@ def test_witness_engine_hint_kinds_match_reference():
     traces, rtraces = port.traces(vals), ref.traces(vals)
     for name in rtraces:
         assert np.array_equal(traces[name], rtraces[name]), name
-
-
-# ---------------------------------------------------------------------------
-# the port's entry points never move to the CPU on their own
-# ---------------------------------------------------------------------------
-
-def test_circuit_entry_points_need_a_card_unless_told_cpu(fetchers):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the entry points run on it")
-    c = dc.DataCommitmentCircuit(2, fetchers[0])
-    with pytest.raises(RuntimeError):
-        c.prove(10000, 10002)
-    with pytest.raises(RuntimeError):
-        c.circuit.build_keys()
-    with pytest.raises(RuntimeError):
-        c.verify(None, [0] * 112)
-    job = map_job.SubchainMapCircuit(2, fetchers[0])
-    with pytest.raises(RuntimeError):
-        job.prove(10000, 10004, bytes(32))
