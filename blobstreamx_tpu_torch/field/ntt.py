@@ -81,6 +81,41 @@ def ntt_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return x
 
 
+# the kernel's passes (csrc/ntt.cu): a first pass of FIRST_STAGES stages on
+# 2^FIRST_GROUP chunks a block, then upper passes of at most UPPER_STAGES
+# stages on tiles of 2^TILE_BITS words
+FIRST_STAGES = 11
+FIRST_GROUP = 2
+UPPER_STAGES = 9
+TILE_BITS = 12
+
+
+@functools.lru_cache(maxsize=None)
+def plan(log_n: int) -> tuple:
+    """The passes of the kernel for n = 2^log_n, as (s0, k, width) triples:
+    pass p runs stages s0 .. s0 + k - 1. The first pass (s0 = 0) takes 2^width
+    chunks of 2^k positions a block; an upper pass takes tiles of 2^k
+    positions 2^s0 apart (bits s0 .. s0 + k - 1 of the position) by 2^width
+    consecutive ones. Up to 2^12 the first pass is the whole transform; up
+    to 2^20 one upper pass follows."""
+    if log_n <= TILE_BITS:
+        return ((0, log_n, 0),)
+    passes = [(0, FIRST_STAGES, FIRST_GROUP)]
+    upper = log_n - FIRST_STAGES
+    n_upper = -(-upper // UPPER_STAGES)
+    s0 = FIRST_STAGES
+    for i in range(n_upper):
+        k = upper // n_upper + (i < upper % n_upper)
+        passes.append((s0, k, TILE_BITS - k))
+        s0 += k
+    return tuple(passes)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(log_n: int) -> np.ndarray:
+    return np.ascontiguousarray(np.array(plan(log_n), dtype=np.int32).reshape(-1))
+
+
 def ntt_kernel(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """The CUDA NTT (csrc/ntt.cu) on a (..., n) int64 tensor on the card."""
     if not x.is_cuda:
@@ -98,10 +133,12 @@ def ntt_kernel(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     batch = x.numel() // n
     tw = twiddles(log_n, inverse, x.device)
     n_inv = pow(n, gl.P - 2, gl.P)
+    passes = _plan_array(log_n)
     with torch.cuda.device(x.device):
         rc = kernels.lib("ntt").bsx_ntt(
             x.data_ptr(), out.data_ptr(), tw.data_ptr(), batch, log_n,
-            int(inverse), n_inv, torch.cuda.current_stream(x.device).cuda_stream)
+            passes.ctypes.data, len(passes) // 3, int(inverse), n_inv,
+            torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "bsx_ntt")
     ntt_kernel.launches += 1
     return out

@@ -30,13 +30,15 @@ _SHARED = ("goldilocks.cuh",)
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "ntt": {
-        # in, out, twiddles, batch, log_n, inverse, n_inv, stream
-        "bsx_ntt": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_uint64, _P],
+        # in, out, twiddles, batch, log_n, plan (host int32 triples),
+        # passes, inverse, n_inv, stream
+        "bsx_ntt": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_uint64, _P],
     },
     "poseidon": {
-        # rc (360 host u64), mds (144 host u64)
-        "bsx_poseidon_set_constants": [_P, _P],
+        # full, first, scalars, cols, mds, init, rows: host u64 arrays
+        # (ops/poseidon.py:kernel_constants)
+        "bsx_poseidon_set_constants": [_P] * 7,
         # in, out, batch, row_stride, col_stride, stream
         "bsx_poseidon_permute": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
                                  ctypes.c_longlong, _P],

@@ -16,6 +16,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +59,101 @@ def mds_matrix() -> tuple:
         tuple(pow(i + j + WIDTH, gl.P - 2, gl.P) for j in range(WIDTH))
         for i in range(WIDTH)
     )
+
+
+# ---------------------------------------------------------------------------
+# the partial rounds in sparse form (the kernel's constants)
+# ---------------------------------------------------------------------------
+
+class SparseConstants(NamedTuple):
+    """The same permutation with the partial rounds rewritten (Grassi et
+    al., "Poseidon", appendix B; plonky2's "fast partial rounds"):
+
+        full rounds 0-3 with ``full[0:4]``
+        s += first;  s[1:] = init @ s[1:]
+        for k in range(22):
+            s[0] = sbox(s[0]) + scalars[k]
+            s = [rows[k] . s] + [s[i] + cols[k][i-1] * s[0] for i in 1..11]
+        full rounds 4-7 with ``full[4:8]``
+
+    A partial round then costs 4 + 23 multiplies in place of 4 + 144."""
+    full: tuple     # (8, 12): round constants of the full rounds
+    first: tuple    # (12,): every partial round's constants, pushed to the front
+    init: tuple     # (11, 11): applied to lanes 1..11 once, before round 0
+    scalars: tuple  # (22,): added to lane 0 after each S-box; the last is 0
+    rows: tuple     # (22, 12): new lane 0
+    cols: tuple     # (22, 11): lane i gains cols[i-1] * lane 0
+
+
+def _mat_inv(a: list) -> list:
+    """Inverse of a square matrix over GF(p) (Gauss-Jordan)."""
+    P = gl.P
+    n = len(a)
+    m = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(a)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if m[r][c])
+        m[c], m[piv] = m[piv], m[c]
+        inv = pow(m[c][c], P - 2, P)
+        m[c] = [v * inv % P for v in m[c]]
+        for r in range(n):
+            if r != c and m[r][c]:
+                f = m[r][c]
+                m[r] = [(v - f * w) % P for v, w in zip(m[r], m[c])]
+    return [row[n:] for row in m]
+
+
+def _mat_vec(a, v) -> list:
+    return [sum(x * y for x, y in zip(row, v)) % gl.P for row in a]
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_constants() -> SparseConstants:
+    """Derive the sparse form from ``round_constants`` and ``mds_matrix``.
+
+    Constants, from the last partial round back: a round's constants c
+    added before its S-box equal M^-1 c added after the previous round's
+    S-box. Lane 0 of that stays there as the previous round's scalar; the
+    other lanes commute with its S-box and join its constants. What
+    reaches round 0 is added once, as ``first``.
+
+    Matrices, likewise from the back: A = M for the last round; factor
+    A = S D with D = diag(1, A[1:,1:]) and S = [[a00, r], [a[1:,0], I]],
+    r = A[0,1:] A[1:,1:]^-1 (every square submatrix of a Cauchy matrix is
+    invertible). D commutes with the S-box of lane 0, so it moves into the
+    round before: A <- D M there. The last D is ``init``."""
+    P = gl.P
+    rc = round_constants()
+    mds = [list(row) for row in mds_matrix()]
+    mds_inv = _mat_inv(mds)
+    half = FULL_ROUNDS // 2
+    full = tuple(tuple(rc[r * WIDTH:(r + 1) * WIDTH])
+                 for r in list(range(half)) + list(range(half + PARTIAL_ROUNDS, N_ROUNDS)))
+
+    def partial(k):
+        return rc[(half + k) * WIDTH:(half + k + 1) * WIDTH]
+
+    scalars = [0] * PARTIAL_ROUNDS
+    carry = list(partial(PARTIAL_ROUNDS - 1))
+    for k in range(PARTIAL_ROUNDS - 1, 0, -1):
+        u = _mat_vec(mds_inv, carry)
+        scalars[k - 1] = u[0]
+        carry = [partial(k - 1)[0]] + [(c + x) % P for c, x in zip(partial(k - 1)[1:], u[1:])]
+
+    rows, cols = [None] * PARTIAL_ROUNDS, [None] * PARTIAL_ROUNDS
+    a = mds
+    for k in range(PARTIAL_ROUNDS - 1, -1, -1):
+        a_hat = [row[1:] for row in a[1:]]
+        a_hat_inv = _mat_inv(a_hat)
+        r = [sum(a[0][1 + i] * a_hat_inv[i][j] for i in range(WIDTH - 1)) % P
+             for j in range(WIDTH - 1)]
+        rows[k] = (a[0][0],) + tuple(r)
+        cols[k] = tuple(a[i][0] for i in range(1, WIDTH))
+        d = [[1] + [0] * (WIDTH - 1)] + [[0] + row for row in a_hat]
+        a = [[sum(d[i][t] * mds[t][j] for t in range(WIDTH)) % P for j in range(WIDTH)]
+             for i in range(WIDTH)]
+    return SparseConstants(full=full, first=tuple(carry),
+                           init=tuple(tuple(row) for row in a_hat),
+                           scalars=tuple(scalars), rows=tuple(rows), cols=tuple(cols))
 
 
 # ---------------------------------------------------------------------------
@@ -155,12 +251,22 @@ def hash_no_pad_plain(inputs: torch.Tensor) -> torch.Tensor:
 def _kernel_lib(device_index: int):
     """The Poseidon library with its constants copied to this device."""
     lib = kernels.lib("poseidon")
-    rc = np.array(round_constants(), dtype=np.uint64)
-    mds = np.array(mds_matrix(), dtype=np.uint64).reshape(-1)
+    arrays = kernel_constants()
     with torch.cuda.device(device_index):
-        kernels.check(lib.bsx_poseidon_set_constants(
-            rc.ctypes.data, mds.ctypes.data), "bsx_poseidon_set_constants")
+        kernels.check(lib.bsx_poseidon_set_constants(*(a.ctypes.data for a in arrays)),
+                      "bsx_poseidon_set_constants")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_constants() -> tuple:
+    """What ``bsx_poseidon_set_constants`` takes, in its order: contiguous
+    uint64 arrays of canonical field elements full (8, 12), first (12,),
+    scalars (22,), cols (22, 11), mds (12, 12), init (11, 11), rows (22, 12)."""
+    sc = sparse_constants()
+    return tuple(np.ascontiguousarray(np.array(v, dtype=np.uint64))
+                 for v in (sc.full, sc.first, sc.scalars, sc.cols, mds_matrix(),
+                           sc.init, sc.rows))
 
 
 def _rows(x: torch.Tensor, what: str):

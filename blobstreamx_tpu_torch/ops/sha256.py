@@ -177,12 +177,12 @@ sha256_fixed_len_kernel.launches = 0
 def sha256_fixed_len(msgs, device=None) -> torch.Tensor:
     """Batch-hash equal-length messages: (B, L) uint8 -> (B, 32) uint8.
 
-    A tensor stays where it is: on the card the kernel runs, on the CPU the
-    plain version. Anything else (a numpy array, nested ints) goes to
-    ``device`` first, where None is the card."""
+    The messages (a tensor, a numpy array or nested ints) go to ``device``
+    first, where None is the card: there the kernel runs, and with
+    ``device="cpu"`` the plain version."""
+    dev = devmod.resolve(device)
     if isinstance(msgs, torch.Tensor):
-        x = msgs
+        x = msgs.to(dev)
     else:
-        x = torch.as_tensor(np.ascontiguousarray(msgs, dtype=np.uint8),
-                            device=devmod.resolve(device))
+        x = torch.as_tensor(np.ascontiguousarray(msgs, dtype=np.uint8), device=dev)
     return sha256_fixed_len_kernel(x) if x.is_cuda else sha256_fixed_len_plain(x)

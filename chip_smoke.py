@@ -64,9 +64,13 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MODMUL = 4
-# Poseidon: 8 full rounds of 12 S-boxes (4 multiplies each) and a 144-term
-# MDS, 22 partial rounds of one S-box and the MDS
-MODMUL_PER_PERMUTATION = 8 * (12 * 4 + 144) + 22 * (4 + 144)
+# Poseidon, the least multiplies of one permutation, in the sparse form the
+# kernel runs (ops/poseidon.py:sparse_constants): 8 full rounds of 12
+# S-boxes (4 multiplies each) and a 144-term MDS; the 11 x 11 matrix before
+# the partial rounds (121); 22 partial rounds of one S-box and a sparse
+# matrix (a row of 12, then 11 lanes of lane i += v_i * lane 0). The dense
+# form counted 22 * (4 + 144) for the partial rounds, 4,792 in all.
+MODMUL_PER_PERMUTATION = 8 * (12 * 4 + 144) + 121 + 22 * (4 + 12 + 11)
 # SHA-256, the least 32-bit instructions of one compression, a 3-input xor
 # or add counted as one: a round is 6 rotates, 2 xors, ch, maj and 4 adds
 # (14); a schedule word 4 rotates and 2 shifts (sigma0 and sigma1 are two
@@ -108,6 +112,16 @@ def max_abs_err(torch, a, b) -> float:
 def rand_field(torch, gl, rng, shape, dev):
     import numpy as np
     return gl.from_int(rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev)
+
+
+def edge_field(torch, gl, rng, shape, dev):
+    """Field elements drawn from values at the carry and borrow edges of the
+    kernels' arithmetic (0, 1, p - 1, 2^32 - 1, 2^32, 2^63, ...)."""
+    import numpy as np
+    P = gl.P
+    edges = np.array([0, 1, 2, P - 1, P - 2, 2**32 - 1, 2**32, 2**32 + 1, 2**63,
+                      P - 2**32, 2**64 - 2**33, 2**31], dtype=np.uint64)
+    return gl.from_int(edges[rng.integers(0, len(edges), size=shape)], dev)
 
 
 def phase_device(torch):
@@ -239,16 +253,21 @@ def phase_kernel_check(torch, np):
     rng = np.random.default_rng(SEED)
     results = {}
 
-    # NTT: every size class, both directions, a batch of 3
+    # NTT: every size class and pass plan (one pass up to 2^12, one upper
+    # pass from 2^13, a second from 2^21), both directions, batches of 1-3
     ntt_err = 0.0
     ntt_cases = []
-    for log_n in (4, 10, 12, 16, 19, 20):
-        x = rand_field(torch, gl, rng, (3, 1 << log_n), dev)
-        for inverse in (False, True):
-            err = max_abs_err(torch, nttmod.ntt_kernel(x, inverse),
-                              nttmod.ntt_plain(x, inverse))
-            ntt_err = max(ntt_err, err)
-            ntt_cases.append({"n": 1 << log_n, "inverse": inverse, "equal": err == 0})
+    for log_n in (1, 4, 10, 12, 13, 16, 17, 19, 20, 21, 22):
+        batch = 1 + log_n % 3
+        for make in (rand_field, edge_field):
+            x = make(torch, gl, rng, (batch, 1 << log_n), dev)
+            for inverse in (False, True):
+                err = max_abs_err(torch, nttmod.ntt_kernel(x, inverse),
+                                  nttmod.ntt_plain(x, inverse))
+                ntt_err = max(ntt_err, err)
+                ntt_cases.append({"n": 1 << log_n, "batch": batch, "inverse": inverse,
+                                  "inputs": make.__name__, "passes": len(nttmod.plan(log_n)),
+                                  "equal": err == 0})
     # the main path's largest shape: the main trace LDE, 111 columns at 2^19
     x = rand_field(torch, gl, rng, (111, 1 << 19), dev)
     ms = cuda_ms(torch, lambda: nttmod.ntt_kernel(x), 10)
@@ -269,14 +288,16 @@ def phase_kernel_check(torch, np):
     # Poseidon: permutation batches, sponge layouts, and the python ints
     pos_err = 0.0
     for batch in (1, 2047, 2048, 65537):
-        s = rand_field(torch, gl, rng, (batch, 12), dev)
-        pos_err = max(pos_err, max_abs_err(torch, pos.permute_kernel(s),
-                                           pos.permute_plain(s)))
+        for make in (rand_field, edge_field):
+            s = make(torch, gl, rng, (batch, 12), dev)
+            pos_err = max(pos_err, max_abs_err(torch, pos.permute_kernel(s),
+                                               pos.permute_plain(s)))
     for rows, width, col_major in ((4096, 111, True), (2048, 8, False), (300, 21, True)):
-        m = rand_field(torch, gl, rng, (width, rows) if col_major else (rows, width), dev)
-        leaves = m.t() if col_major else m
-        pos_err = max(pos_err, max_abs_err(torch, pos.hash_no_pad_kernel(leaves),
-                                           pos.hash_no_pad_plain(leaves)))
+        for make in (rand_field, edge_field):
+            m = make(torch, gl, rng, (width, rows) if col_major else (rows, width), dev)
+            leaves = m.t() if col_major else m
+            pos_err = max(pos_err, max_abs_err(torch, pos.hash_no_pad_kernel(leaves),
+                                               pos.hash_no_pad_plain(leaves)))
     states = rng.integers(0, gl.P, size=(4, 12), dtype=np.uint64)
     got = gl.to_int(pos.permute_kernel(gl.from_int(states, dev)))
     py_equal = all([int(v) for v in got[i]] == pos.permute_py([int(v) for v in states[i]])

@@ -32,7 +32,7 @@ def field(seed: int, shape, dev) -> torch.Tensor:
     return convert.ints_to_tensor(values, dev)
 
 
-@pytest.mark.parametrize("log_n", [4, 12, 13, 17, 20])
+@pytest.mark.parametrize("log_n", [1, 4, 12, 13, 17, 20, 21, 22])
 def test_ntt_kernel_matches_plain(card, log_n):
     x = field(log_n, (3, 1 << log_n), card)
     for inverse in (False, True):

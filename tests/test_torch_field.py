@@ -231,6 +231,10 @@ def _entry_point_calls():
             np.zeros(4, dtype=np.uint64), np.zeros(4, dtype=np.uint64)),
         "sha256.sha256_fixed_len": lambda: sha256.sha256_fixed_len(
             np.zeros((1, 4), dtype=np.uint8)),
+        "sha256.sha256_fixed_len(cpu tensor)": lambda: sha256.sha256_fixed_len(
+            torch.zeros((1, 4), dtype=torch.uint8)),
+        "sha256.sha256_fixed_len(cpu tensor, cuda)": lambda: sha256.sha256_fixed_len(
+            torch.zeros((1, 4), dtype=torch.uint8), device="cuda"),
         "stark.build": lambda: stark.build(air, 256, cfg),
         "system.prove_system": lambda: system.prove_system([spec], cfg),
         "system.verify_system": lambda: system.verify_system(
@@ -248,7 +252,8 @@ def _entry_point_calls():
 
 ENTRY_POINTS = ["ntt.ntt", "ntt.lde", "ntt.interpolate_coeffs", "poseidon.permute",
                 "poseidon.hash_no_pad", "poseidon.hash_two_to_one",
-                "sha256.sha256_fixed_len", "stark.build", "system.prove_system",
+                "sha256.sha256_fixed_len", "sha256.sha256_fixed_len(cpu tensor)",
+                "sha256.sha256_fixed_len(cpu tensor, cuda)", "stark.build", "system.prove_system",
                 "system.verify_system", "system.check_bus_balance",
                 "CompiledCircuit.prove", "CompiledCircuit.verify",
                 "CompiledCircuit.build_keys", "DataCommitmentCircuit.prove",

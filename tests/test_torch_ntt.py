@@ -81,6 +81,93 @@ def test_twiddle_table_layout():
         assert tw[m:2 * m] == [pow(w, j, gl.P) for j in range(m)]
 
 
+@pytest.mark.parametrize("log_n", range(1, 33))
+def test_plan_covers_every_stage_once(log_n):
+    """The passes the CUDA kernel runs: stages 0 .. log_n - 1 in order; one
+    pass up to 2^12, two up to 2^20; every tile within shared memory and,
+    above 2^12, read in whole 32-byte sectors (4 words or more)."""
+    passes = ntt.plan(log_n)
+    assert [s0 for s0, _, _ in passes] == [sum(k for _, k, _ in passes[:i])
+                                           for i in range(len(passes))]
+    assert sum(k for _, k, _ in passes) == log_n
+    s0, k, g = passes[0]
+    assert (s0, k, g) == ((0, log_n, 0) if log_n <= 12 else (0, 11, 2))
+    assert len(passes) == (1 if log_n <= 12 else 1 + -(-(log_n - 11) // 9))
+    for s0, k, w in passes[1:]:
+        assert 1 <= k <= ntt.UPPER_STAGES and k + w == ntt.TILE_BITS and 3 <= w <= s0
+
+
+def _rev(v, bits: int):
+    v = np.asarray(v, dtype=np.int64)
+    out = np.zeros_like(v)
+    for b in range(bits):
+        out |= ((v >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def ntt_by_plan(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """A model of csrc/ntt.cu's passes: each block's loads, butterflies and
+    stores, with the kernel's index arithmetic, in plain field ops."""
+    B, n = x.shape
+    log_n = n.bit_length() - 1
+    tw = ntt.twiddles(log_n, inverse, "cpu")
+    passes = ntt.plan(log_n)
+    out = torch.empty_like(x)
+    _, k, g = passes[0]
+    log_res = log_n - k
+    i = np.arange(1 << k)
+    b = np.arange(1 << g)
+    for r0 in range(0, 1 << log_res, 1 << g):  # one block of the first pass
+        sh = x[:, (_rev(i, k)[None, :] << log_res) + r0 + b[:, None]].clone()
+        for s in range(k):
+            m = 1 << s
+            u = np.arange(1 << (k - 1))
+            j = u & (m - 1)
+            i0 = ((u >> s) << (s + 1)) | j
+            a, c = sh[..., i0], gl.mul(sh[..., i0 + m], tw[m + j])
+            sh[..., i0], sh[..., i0 + m] = gl.add(a, c), gl.sub(a, c)
+        out[:, (_rev(r0 + b, log_res)[:, None] << k) + i[None, :]] = sh
+    for s0, k, w in passes[1:]:
+        mid, lo = np.arange(1 << k), np.arange(1 << w)
+        for top in range(1 << (log_n - s0 - k)):
+            for low0 in range(0, 1 << s0, 1 << w):  # one tile of an upper pass
+                where = (top << (s0 + k)) + (mid[:, None] << s0) + low0 + lo[None, :]
+                sh = out[:, where].clone()
+                for q in range(k):
+                    m = 1 << q
+                    u = np.arange(1 << (k - 1))
+                    jm = u & (m - 1)
+                    mid0 = ((u >> q) << (q + 1)) | jm
+                    w_idx = (1 << (s0 + q)) + (jm[:, None] << s0) + low0 + lo[None, :]
+                    a, c = sh[:, mid0], gl.mul(sh[:, mid0 + m], tw[w_idx])
+                    sh[:, mid0], sh[:, mid0 + m] = gl.add(a, c), gl.sub(a, c)
+                out[:, where] = sh
+    if inverse:
+        out = gl.mul(out, gl.scalar(pow(n, gl.P - 2, gl.P), "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("log_n", [5, 13, 14])
+def test_plan_index_model_matches_plain(log_n):
+    x = convert.ints_to_tensor(columns(log_n, 1 << log_n))
+    for inverse in (False, True):
+        assert torch.equal(ntt_by_plan(x, inverse), ntt.ntt_plain(x, inverse))
+
+
+def test_upper_pass_twiddles_are_powers_of_the_root():
+    """An upper pass reads tw[2^s + j] for j up to 2^s - 1 at every stage s
+    above the first pass: w_{2^(s+1)}^j, here for n = 2^14."""
+    log_n = 14
+    for inverse in (False, True):
+        tw = [int(v) for v in gl.to_int(ntt.twiddles(log_n, inverse, "cpu"))]
+        for s in range(ntt.FIRST_STAGES, log_n):
+            w = gl.primitive_root_of_unity(s + 1)
+            if inverse:
+                w = pow(w, gl.P - 2, gl.P)
+            for j in (0, 1, (1 << s) // 3, (1 << s) - 1):
+                assert tw[(1 << s) + j] == pow(w, j, gl.P)
+
+
 def test_kernel_wrapper_takes_only_card_tensors():
     with pytest.raises(ValueError):
         ntt.ntt_kernel(torch.zeros(2, 16, dtype=torch.int64))

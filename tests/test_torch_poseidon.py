@@ -97,6 +97,83 @@ def test_transcript_matches_reference():
     assert mine.fork().get_challenge() == theirs.fork().get_challenge()
 
 
+def permute_sparse_py(state: list) -> list:
+    """The permutation in the sparse form the CUDA kernel runs, in python
+    ints, fed from the constants that are handed to the kernel."""
+    P = gl.P
+    sc = pos.sparse_constants()
+    mds = pos.mds_matrix()
+    s = list(state)
+
+    def full_round(r):
+        t = [pow((x + c) % P, pos.SBOX_EXP, P) for x, c in zip(s, sc.full[r])]
+        return [sum(m * x for m, x in zip(row, t)) % P for row in mds]
+
+    half = pos.FULL_ROUNDS // 2
+    for r in range(half):
+        s = full_round(r)
+    s = [(x + c) % P for x, c in zip(s, sc.first)]
+    s = [s[0]] + [sum(m * x for m, x in zip(row, s[1:])) % P for row in sc.init]
+    for k in range(pos.PARTIAL_ROUNDS):
+        s0 = (pow(s[0], pos.SBOX_EXP, P) + sc.scalars[k]) % P
+        s = [s0] + s[1:]
+        new0 = sum(m * x for m, x in zip(sc.rows[k], s)) % P
+        s = [new0] + [(x + v * s0) % P for x, v in zip(s[1:], sc.cols[k])]
+    for r in range(half, pos.FULL_ROUNDS):
+        s = full_round(r)
+    return s
+
+
+def sparse_test_states(seed: int = 11) -> np.ndarray:
+    """64 states from the seed, the all-zero state and the all-(p-1) state."""
+    s = field(seed, (66, 12))
+    s[64] = 0
+    s[65] = gl.P - 1
+    return s
+
+
+def test_sparse_form_matches_permute_py():
+    for row in sparse_test_states():
+        ints = [int(v) for v in row]
+        assert permute_sparse_py(ints) == pos.permute_py(ints)
+
+
+def test_sparse_form_matches_reference_permute():
+    """Against the JAX package's permute (its plain path at this batch)."""
+    s = sparse_test_states()
+    ref = jgl.to_int(np.asarray(jpos.permute(jgl.from_int(s))))
+    for row, want in zip(s, ref):
+        assert permute_sparse_py([int(v) for v in row]) == [int(v) for v in want]
+
+
+def test_kernel_constants_shapes_and_range():
+    """What bsx_poseidon_set_constants copies: shapes in its order,
+    contiguous uint64, canonical (< p); the partial rounds' constants are
+    the sparse form's, the last scalar 0, and the full rounds' constants
+    are rounds 0-3 and 26-29 of the instance."""
+    arrays = pos.kernel_constants()
+    shapes = [(8, 12), (12,), (22,), (22, 11), (12, 12), (11, 11), (22, 12)]
+    assert [a.shape for a in arrays] == shapes
+    for a in arrays:
+        assert a.dtype == np.uint64 and a.flags["C_CONTIGUOUS"]
+        assert int(a.max()) < gl.P
+    full, first, scalars, cols, mds, init, rows = arrays
+    rc = np.array(pos.round_constants(), dtype=np.uint64).reshape(30, 12)
+    assert np.array_equal(full, np.concatenate([rc[:4], rc[26:]]))
+    assert np.array_equal(mds, np.array(pos.mds_matrix(), dtype=np.uint64))
+    sc = pos.sparse_constants()
+    assert np.array_equal(first, np.array(sc.first, dtype=np.uint64))
+    assert np.array_equal(init, np.array(sc.init, dtype=np.uint64))
+    assert np.array_equal(rows, np.array(sc.rows, dtype=np.uint64))
+    assert np.array_equal(cols, np.array(sc.cols, dtype=np.uint64))
+    assert int(scalars[-1]) == 0 and np.array_equal(scalars, np.array(sc.scalars, dtype=np.uint64))
+    # every sparse round's row keeps M[0][0]; the last round's matrix is M's
+    # own factor, so its column is M's column 0
+    m = pos.mds_matrix()
+    assert all(r[0] == m[0][0] for r in sc.rows)
+    assert list(sc.cols[-1]) == [m[i][0] for i in range(1, 12)]
+
+
 def test_kernel_wrappers_take_only_card_tensors():
     with pytest.raises(ValueError):
         pos.permute_kernel(torch.zeros(2, 12, dtype=torch.int64))

@@ -27,7 +27,7 @@ def hashlib_digests(msgs: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("L", [55, 64, 150])
 def test_plain_matches_reference_and_hashlib(L):
     msgs = messages(97, L, seed=L)
-    got = sha.sha256_fixed_len(torch.from_numpy(msgs))
+    got = sha.sha256_fixed_len(torch.from_numpy(msgs), device="cpu")
     assert got.dtype == torch.uint8 and got.shape == (97, 32) and not got.is_cuda
     assert np.array_equal(got.numpy(), jsha.sha256_fixed_len(msgs))
     assert np.array_equal(got.numpy(), hashlib_digests(msgs))
@@ -41,6 +41,17 @@ def test_plain_padding_edges(B, L):
     got = sha.sha256_fixed_len(msgs, device="cpu")
     assert not got.is_cuda
     assert np.array_equal(got.numpy(), hashlib_digests(msgs))
+
+
+def test_cpu_tensor_with_device_cpu_matches_hashlib():
+    """A uint8 tensor given ``device="cpu"`` is hashed by the plain version
+    on the CPU; without it (None: the card) it would go to the card."""
+    msgs = messages(33, 65, seed=65)
+    x = torch.from_numpy(msgs)
+    got = sha.sha256_fixed_len(x, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), hashlib_digests(msgs))
+    assert torch.equal(x, torch.from_numpy(msgs))  # the input is left as it was
 
 
 def test_kernel_refuses_cpu_tensors_and_bad_input():
