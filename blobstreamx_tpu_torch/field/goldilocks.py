@@ -131,6 +131,25 @@ def mul(a, b):
     return _reduce128(*_mul_wide(a, b))
 
 
+# mul_small's bound on its constant: a 32-bit half of a times c < 2^30 stays
+# below 2^62, so the partial products and their sum fit int64
+SMALL_MUL_BOUND = 1 << 30
+
+
+def mul_small(a, c: int):
+    """a * c for a python-int constant 0 <= c < 2^30: the product is below
+    2^94, three 32-bit limbs, reduced as in _reduce128 with no top limb."""
+    if not 0 <= c < SMALL_MUL_BOUND:
+        raise ValueError("mul_small takes a constant below 2^30")
+    lo = (a & _M32) * c
+    t = ((a >> 32) & _M32) * c + (lo >> 32)
+    x = (lo & _M32) | ((t & _M32) << 32)
+    n2 = t >> 32
+    r = x + ((n2 << 32) - n2)  # + n2 * EPSILON, which is < 2^63
+    fix = _ult(r, x) | ((r ^ _SIGN) >= _P_FLIPPED)
+    return torch.where(fix, r + EPSILON, r)
+
+
 def square(x):
     return mul(x, x)
 

@@ -1,9 +1,10 @@
 """Circuit frontend DSL — the plonky2x CircuitBuilder equivalent (SURVEY.md D7).
 
 The port's copy of ``blobstreamx_tpu/frontend/builder.py`` for the tables
-the port has (cpu, sha, bytes): it builds the same rows, wires and events,
-so a circuit's witness, traces and proof equal the JAX package's. The
-SHA-512, Poseidon and Ed25519 gadgets wait for their chips.
+the port has (cpu, sha, sha512, ed, range16, bytes): it builds the same
+rows, wires and events, so a circuit's witness, traces and proof equal the
+JAX package's. The Poseidon gadgets and the pos table wait for the
+Poseidon chip.
 
 API surface mirrors the reference frontend (typed variables named like
 plonky2x's: ByteVariable, Bytes32Variable, U32Variable, U64Variable,
@@ -30,10 +31,15 @@ from ..field import goldilocks as gl
 from ..chips import bytes as bytes_chip
 from ..chips import channels as ch
 from ..chips import cpu
+from ..chips import ed25519 as ed_chip
+from ..chips import range16 as range16_chip
 from ..chips import sha256 as sha_chip
+from ..chips import sha512 as sha512_chip
 from ..proof import stark, system
 
 TWO32 = 1 << 32
+
+ED_L = 2**252 + 27742317777372353535851937790883648493  # Ed25519 group order
 
 
 @dataclass(frozen=True)
@@ -94,6 +100,24 @@ class ShaCall:
     digest_word_wires: List[int]
 
 
+@dataclass
+class Sha512Call:
+    inst: int
+    blocks_half_wires: List[List[int]]  # per block: 32 half-word wires
+    message_byte_wires: List[int]
+    digest_half_wires: List[int]  # 16: a-side (lo,hi)x4 then e-side
+
+
+@dataclass
+class EdCall:
+    """One Ed25519 verification instance routed to the EC chip."""
+
+    inst: int
+    pubkey_wires: List[int]  # 32 compressed bytes
+    sig_wires: List[int]     # 64 bytes (R || S)
+    msg_wires: List[int]     # message bytes, padded to max
+    len_wire: int            # actual message length
+
 
 class CircuitBuilder:
     def __init__(self):
@@ -102,6 +126,8 @@ class CircuitBuilder:
         self.read_counts: Dict[int, int] = {}
         self.events: List[tuple] = []
         self.sha_calls: List[ShaCall] = []
+        self.sha512_calls: List[Sha512Call] = []
+        self.ed_calls: List[EdCall] = []
         self.range_checked: List[int] = []
         self.n_public = 0
         self.n_public_inputs = 0  # evm_read bytes (precede evm_write bytes)
@@ -523,16 +549,86 @@ class CircuitBuilder:
             out_bytes.extend(self.unpack_word_to_bytes(Variable(w)))
         return Bytes32Variable(tuple(out_bytes))
 
+    # -- SHA-512 -----------------------------------------------------------
+    def sha512(self, message: Sequence[ByteVariable]) -> List[ByteVariable]:
+        """Hash fixed-length byte variables via the SHA-512 chip (bus I/O).
+
+        Returns the 64 digest bytes. Backs the Ed25519 challenge hash
+        k = SHA512(R||A||M) (reference starkyx Ed25519, SURVEY.md D11).
+        """
+        msg_bytes = list(message)
+        L = len(msg_bytes)
+        pad = bytearray(b"\x80")
+        while (L + len(pad)) % 128 != 112:
+            pad.append(0)
+        pad += (8 * L).to_bytes(16, "big")
+        padded = msg_bytes + [self.byte_constant(x) for x in pad]
+        return self.sha512_raw(padded, message_bytes=msg_bytes)
+
+    def sha512_raw(self, padded: Sequence[ByteVariable],
+                   message_bytes=None) -> List[ByteVariable]:
+        """Hash pre-padded 128-byte blocks (variable-length support)."""
+        assert len(padded) % 128 == 0
+        inst = len(self.sha512_calls)
+        blocks = []
+        for off in range(0, len(padded), 128):
+            blk = padded[off:off + 128]
+            half_wires = []
+            for wo in range(0, 128, 8):
+                hi = self.pack4(blk[wo], blk[wo + 1], blk[wo + 2], blk[wo + 3])
+                lo = self.pack4(blk[wo + 4], blk[wo + 5], blk[wo + 6], blk[wo + 7])
+                half_wires.extend([lo.wire, hi.wire])
+            blocks.append(half_wires)
+        for blk_i, half_wires in enumerate(blocks):
+            for halfslot, w in enumerate(half_wires):
+                self._row(
+                    cpu.Row(
+                        in_idx=(self._read(w), 0, 0, 0),
+                        in_act=(1, 0, 0, 0),
+                        flags=(0, 0, 0, 0, 0, 1, 0, 0),
+                        io=(inst, halfslot, blk_i),
+                    )
+                )
+        digest_wires = []
+        call = Sha512Call(
+            inst, blocks,
+            [bv.wire for bv in message_bytes] if message_bytes is not None else None,
+            digest_wires,
+        )
+        self.sha512_calls.append(call)
+        self.events.append(("sha512", call))
+        for flag_pos in (5, 6):  # S512_OUT_A then S512_OUT_E (receive flags 6, 7)
+            for halfj in range(8):
+                w = self._new_wire()
+                flags = [0] * 8
+                flags[flag_pos + 1] = 1
+                self._row(
+                    cpu.Row(
+                        out_idx=w, defines=1, flags=tuple(flags), io=(inst, halfj, 0)
+                    )
+                )
+                digest_wires.append(w)
+        out_bytes = []
+        for j in range(8):
+            # word j: big-endian bytes = hi32 then lo32
+            base = 2 * (j % 4) + (0 if j < 4 else 8)
+            lo_w, hi_w = digest_wires[base], digest_wires[base + 1]
+            out_bytes.extend(self.unpack_word_to_bytes(Variable(hi_w)))
+            out_bytes.extend(self.unpack_word_to_bytes(Variable(lo_w)))
+        return out_bytes
+
     # -- variable-length hashing ------------------------------------------
-    def _pad_variable(self, message, length, min_len):
-        """SHA-256 padding with circuit-computed position (len in [min_len,
-        max]). Returns the padded byte list covering ceil((max_len+9)/64)
-        blocks. (The reference's also pads for SHA-512, whose gadgets the
-        port does not have yet.)
+    def _pad_variable(self, message, length, min_len, block: int):
+        """FIPS padding with circuit-computed position (len in [min_len, max]).
+
+        Returns the padded byte list covering ceil((max_len+17)/block) blocks
+        for SHA-256 (block=64, 8-byte length) or 2 blocks for SHA-512
+        (block=128, 16-byte length).
         """
         max_len = len(message)
-        len_field = 8
-        total = (max_len + 1 + len_field + 63) // 64 * 64
+        len_field = 8 if block == 64 else 16
+        n_blocks = (max_len + 1 + len_field + block - 1) // block
+        total = n_blocks * block
         assert min_len + 1 + len_field <= total
         zero = self.byte_constant(0)
         # done_i = (length <= i); eq_i = (length == i)
@@ -557,7 +653,7 @@ class CircuitBuilder:
                 padded.append(ByteVariable(v.wire))
             else:
                 padded.append(zero)
-        # length field: 8*length fits 16 bits here
+        # length field: 8*length fits 16 bits for both block sizes here
         bitlen = self._arith(terms=[(8, length.wire)])
 
         def split2(vals):
@@ -578,7 +674,121 @@ class CircuitBuilder:
         """SHA-256 of message[:length] (single-block: max_len <= 55)."""
         assert len(message) <= 55
         return self.sha256_raw(
-            self._pad_variable(list(message), length, min_len)
+            self._pad_variable(list(message), length, min_len, 64)
+        )
+
+    def sha512_var(self, message, length: U32Variable,
+                   min_len: int) -> List[ByteVariable]:
+        """SHA-512 of message[:length]; requires 112 <= min_len <= length
+        so the block count (2) is static."""
+        assert 112 <= min_len and len(message) <= 239
+        return self.sha512_raw(
+            self._pad_variable(list(message), length, min_len, 128)
+        )
+
+    # -- Ed25519 -----------------------------------------------------------
+    def _pack2(self, lo: ByteVariable, hi: ByteVariable) -> Variable:
+        return self._arith(terms=[(1, lo.wire), (256, hi.wire)])
+
+    def _ed_send_point(self, inst: int, which: int, data):
+        """Send a compressed point (32 ByteVariables) as 16 LE limbs + sign."""
+        b31 = data[31]
+
+        def sign_hint(vals):
+            return [vals[0] >> 7]
+
+        (sgn_w,) = self.hint([Variable(b31.wire)], 1, sign_hint, kind="shr7")
+        self.assert_bool(BoolVariable(sgn_w))
+        low7 = self._arith(terms=[(1, b31.wire), (gl.P - 128, sgn_w)])
+        self.add_byte_check(low7.wire)
+        dbl = self._arith(terms=[(2, low7.wire)])
+        self.add_byte_check(dbl.wire)  # 2*low7 < 256 => low7 < 128
+        for j in range(16):
+            if j < 15:
+                limb = self._pack2(data[2 * j], data[2 * j + 1])
+            else:
+                limb = self._arith(terms=[(1, data[30].wire), (256, low7.wire)])
+            self._row(
+                cpu.Row(
+                    in_idx=(self._read(limb.wire), 0, 0, 0),
+                    in_act=(1, 0, 0, 0),
+                    flags=(0, 0, 0, 0, 0, 0, 0, 0, 1, 0),
+                    io=(inst, j, which),
+                )
+            )
+        self._row(
+            cpu.Row(
+                in_idx=(self._read(sgn_w), 0, 0, 0),
+                in_act=(1, 0, 0, 0),
+                flags=(0, 0, 0, 0, 0, 0, 0, 0, 1, 0),
+                io=(inst, 16, which),
+            )
+        )
+
+    def _ed_send_scalar_limbs(self, inst: int, which: int, byte_vars):
+        for g in range(len(byte_vars) // 2):
+            limb = self._pack2(byte_vars[2 * g], byte_vars[2 * g + 1])
+            self._row(
+                cpu.Row(
+                    in_idx=(self._read(limb.wire), 0, 0, 0),
+                    in_act=(1, 0, 0, 0),
+                    flags=(0, 0, 0, 0, 0, 0, 0, 0, 0, 1),
+                    io=(inst, g, which),
+                )
+            )
+
+    def assert_bytes_lt_le(self, a_bytes, bound: int):
+        """Assert the little-endian byte string a < bound (e.g. S < L)."""
+        n = len(a_bytes)
+        lt = self._false()
+        for g in range(n // 4):
+            w = self._arith(terms=[
+                (1, a_bytes[4 * g].wire), (1 << 8, a_bytes[4 * g + 1].wire),
+                (1 << 16, a_bytes[4 * g + 2].wire), (1 << 24, a_bytes[4 * g + 3].wire),
+            ])
+            bw = self.u32_constant((bound >> (32 * g)) & 0xFFFFFFFF)
+            word = U32Variable(w.wire)
+            eq = self.is_equal(Variable(w.wire), Variable(bw.wire))
+            lt_g = self.u32_lt(word, bw)
+            # scan from LSW to MSW: lt = eq ? lt : lt_g
+            lt = BoolVariable(
+                self.select(eq, Variable(lt.wire), Variable(lt_g.wire)).wire
+            )
+        self.assert_is_equal(Variable(lt.wire), self.one())
+
+    def ed25519_verify(self, pubkey, signature, message, msg_len: U32Variable,
+                       min_msg_len: int):
+        """Verify an Ed25519 signature in-circuit.
+
+        pubkey: 32 ByteVariables; signature: 64 (R || S); message: byte
+        variables padded to the max length with msg_len the true length.
+        Links the SHA-512 chip (challenge hash) and the Ed25519 EC chip
+        (curve equation) over the bus. Reference: starkyx Ed25519 gadget
+        used by tendermintx vote verification (SURVEY.md D11/D13).
+        """
+        inst = len(self.ed_calls)
+        r_bytes = list(signature[:32])
+        s_bytes = list(signature[32:])
+        # k512 = SHA512(R || A || M)
+        total_len = self._arith(q0=64, terms=[(1, msg_len.lo.wire)])
+        digest = self.sha512_var(
+            r_bytes + list(pubkey) + list(message),
+            U32Variable(total_len.wire),
+            64 + min_msg_len,
+        )
+        self._ed_send_point(inst, 0, list(pubkey))  # WHICH_A
+        self._ed_send_point(inst, 1, r_bytes)       # WHICH_R
+        self.assert_bytes_lt_le(s_bytes, ED_L)
+        self._ed_send_scalar_limbs(inst, 2, s_bytes)  # WHICH_S
+        self._ed_send_scalar_limbs(inst, 3, digest)   # WHICH_K (k512, LE)
+        self.ed_calls.append(
+            EdCall(
+                inst,
+                [b.wire for b in pubkey],
+                [b.wire for b in signature],
+                [b.wire for b in message],
+                msg_len.lo.wire,
+            )
         )
 
     # -- public I/O --------------------------------------------------------
@@ -644,7 +854,29 @@ class CompiledCircuit:
                 self.n_sha_rows,
             )
             self.sha_air = sha_chip.Sha256Air(self.sha_schedule, self.n_sha_rows)
+        self.sha512_air = None
+        n_blocks512 = sum(len(c.blocks_half_wires) for c in builder.sha512_calls)
+        if n_blocks512:
+            seg512 = n_blocks512 * sha512_chip.SEGMENT
+            self.n_sha512_rows = 1 << max(7, (seg512 - 1).bit_length())
+            self.sha512_schedule = sha512_chip.schedule_for(
+                [len(c.blocks_half_wires) for c in builder.sha512_calls],
+                self.n_sha512_rows,
+            )
+            self.sha512_air = sha512_chip.Sha512Air(
+                self.sha512_schedule, self.n_sha512_rows
+            )
         self.bytes_air = bytes_chip.BytesAir()
+        self.ed_air = None
+        if builder.ed_calls:
+            na, nb = getattr(builder, "ed_nbits", (512, 256))
+            seg = 4 + 2 * na + nb
+            n_ed = 1 << max(6, (len(builder.ed_calls) * seg - 1).bit_length())
+            self.ed_air = ed_chip.Ed25519Air(
+                [ed_chip.SigInfo(c.inst) for c in builder.ed_calls],
+                n_ed, nbits_a=na, nbits_b=nb,
+            )
+            self.range16_air = range16_chip.Range16Air()
 
     def generate_witness(self, public_inputs: Dict[int, int] = None) -> np.ndarray:
         """Run the program through the batched witness engine
@@ -696,7 +928,13 @@ class CompiledCircuit:
         return {
             "cpu": cpu.trace_index_arrays(b.rows),
             "sha": [np.array(c.blocks_word_wires, dtype=np.int64) for c in b.sha_calls],
+            "sha512": [np.array(c.blocks_half_wires, dtype=np.int64)
+                       for c in b.sha512_calls],
             "range": np.array(b.range_checked, dtype=np.int64),
+            "ed": [(np.array(c.pubkey_wires, dtype=np.int64),
+                    np.array(c.sig_wires, dtype=np.int64),
+                    np.array(c.msg_wires, dtype=np.int64), c.len_wire)
+                   for c in b.ed_calls],
         }
 
     def traces(self, vals: np.ndarray) -> Dict[str, np.ndarray]:
@@ -707,9 +945,31 @@ class CompiledCircuit:
         if self.sha_air is not None:
             messages = [vals[idx].astype(np.uint32) for idx in g["sha"]]
             out["sha"] = sha_chip.build_trace(messages, self.n_sha_rows, self.sha_schedule)
+        if self.sha512_air is not None:
+            messages512 = []
+            for idx in g["sha512"]:
+                halves = vals[idx]  # (nblk, 32) (lo, hi) interleaved
+                messages512.append(halves[:, 0::2] | (halves[:, 1::2] << np.uint64(32)))
+            out["sha512"] = sha512_chip.build_trace(
+                messages512, self.n_sha512_rows, self.sha512_schedule
+            )
         counts = np.bincount(
             (vals[g["range"]] & np.uint64(0xFF)).astype(np.int64), minlength=256
         ).astype(np.uint64) if g["range"].size else np.zeros(256, dtype=np.uint64)
+        if self.ed_air is not None:
+            sigs = []
+            for pk_idx, sig_idx, msg_idx, len_wire in g["ed"]:
+                mlen = int(vals[len_wire])
+                sigs.append(ed_chip.SigWitness(
+                    pubkey=vals[pk_idx].astype(np.uint8).tobytes(),
+                    msg=vals[msg_idx[:mlen]].astype(np.uint8).tobytes(),
+                    signature=vals[sig_idx].astype(np.uint8).tobytes(),
+                ))
+            ed_trace = ed_chip.build_trace(self.ed_air, sigs)
+            r16, r8 = ed_chip.range_counts(self.ed_air, ed_trace)
+            counts += r8
+            out["ed"] = ed_trace
+            out["range16"] = range16_chip.build_trace(r16)
         out["bytes"] = bytes_chip.build_trace(counts)
         return out
 
@@ -725,12 +985,20 @@ class CompiledCircuit:
 
     # -- proving -----------------------------------------------------------
     def airs(self) -> List:
-        """The proof system's tables, in order (an empty SHA table omitted)."""
-        return [air for air in (self.cpu_air, self.sha_air, self.bytes_air)
-                if air is not None]
+        """The proof system's tables, in order (empty tables omitted)."""
+        ed = (self.ed_air, self.range16_air) if self.ed_air is not None else ()
+        return [air for air in (self.cpu_air, self.sha_air, self.sha512_air) + ed
+                + (self.bytes_air,) if air is not None]
 
     def _table_names(self) -> List[str]:
-        return ["cpu"] + (["sha"] if self.sha_air is not None else []) + ["bytes"]
+        names = ["cpu"]
+        if self.sha_air is not None:
+            names.append("sha")
+        if self.sha512_air is not None:
+            names.append("sha512")
+        if self.ed_air is not None:
+            names += ["ed", "range16"]
+        return names + ["bytes"]
 
     def specs(self, traces: Dict[str, np.ndarray], pks=None) -> List[system.TableSpec]:
         """The tables as the system prover takes them."""
@@ -776,6 +1044,11 @@ class CompiledCircuit:
         sizes = {"cpu": self.n_cpu_rows, "bytes": bytes_chip.N_ROWS}
         if self.sha_air is not None:
             sizes["sha"] = self.n_sha_rows
+        if self.sha512_air is not None:
+            sizes["sha512"] = self.n_sha512_rows
+        if self.ed_air is not None:
+            sizes["ed"] = self.ed_air.n_rows
+            sizes["range16"] = range16_chip.N_ROWS
         pks, vks = [], []
         for name, air in zip(self._table_names(), self.airs()):
             pk, vk = stark.build(air, sizes[name], cfg, dev)

@@ -2,8 +2,8 @@
 program into a leveled schedule executed as vectorized numpy/field sweeps.
 
 The port's copy of ``blobstreamx_tpu/frontend/witness.py`` for the events
-the port's frontend emits (arithmetic rows, hints, SHA-256 calls); the
-SHA-512 and Poseidon batches wait for their chips. Host numpy, as in the
+the port's frontend emits (arithmetic rows, hints, SHA-256 and SHA-512
+calls); the Poseidon batch waits for the Poseidon chip. Host numpy, as in the
 reference: a map job hashes a few hundred messages, below the size where
 the SHA-256 kernel pays.
 
@@ -12,8 +12,8 @@ the SHA-256 kernel pays.
   * prove-many: execution walks levels; within a level, same-kind events run
     as ONE vectorized operation — arithmetic rows as gathered Goldilocks
     numpy sweeps (field/goldilocks_host.py), typed hints (u32 splits,
-    carries, borrows, inverses) as numpy expressions, SHA-256 compressions
-    batched across calls. Only opaque callback hints (the witness fetchers,
+    carries, borrows, inverses) as numpy expressions, SHA-256/512
+    compressions batched across calls. Only opaque callback hints (the witness fetchers,
     a handful per circuit) remain Python calls.
 
 Equivalence with the interpreter is tested (tests/test_torch_frontend.py).
@@ -32,6 +32,7 @@ from ..field import goldilocks_host as glh
 from ..field.extension import W
 from ..field.goldilocks import P
 from ..ops import sha256 as _sha
+from ..ops import sha512 as _sha5
 
 _U64 = np.uint64
 
@@ -72,6 +73,13 @@ class WitnessProgram:
                 else:
                     ins = [w for blk in call.blocks_word_wires for w in blk]
                 ops.append(("sha", ins, list(call.digest_word_wires), call))
+            elif ev[0] == "sha512":
+                call = ev[1]
+                if call.message_byte_wires is not None:
+                    ins = list(call.message_byte_wires)
+                else:
+                    ins = [w for blk in call.blocks_half_wires for w in blk]
+                ops.append(("sha512", ins, list(call.digest_half_wires), call))
 
         # Dataflow levels, independent of event-emission order: circuits may
         # legally consume wires whose producing hint_into is registered later
@@ -148,7 +156,7 @@ class WitnessProgram:
             ins = np.array([op[1] for op in ops], dtype=np.int64)
             outs = np.array([op[2] for op in ops], dtype=np.int64)
             return _Batch(kind, dict(ins=ins, outs=outs))
-        if kind == "sha":
+        if kind in ("sha", "sha512"):
             msg, raw = [], []
             for op in ops:
                 (msg if op[3].message_byte_wires is not None else raw).append(op)
@@ -163,7 +171,8 @@ class WitnessProgram:
             by_nblk: Dict[int, list] = {}
             for op in raw:
                 call = op[3]
-                blocks = call.blocks_word_wires
+                blocks = (call.blocks_word_wires if kind == "sha"
+                          else call.blocks_half_wires)
                 by_nblk.setdefault(len(blocks), []).append(
                     (np.array(blocks, dtype=np.int64),
                      np.array(op[2], dtype=np.int64))
@@ -270,6 +279,28 @@ class WitnessProgram:
                 state = _sha.compress_blocks(words[:, k], state)
             vals[out_idx] = state.astype(_U64)
 
+    def _run_sha512(self, p, vals):
+        def to_halves(state):
+            # digest layout: a-side words 0..3 as (lo,hi) pairs, then e-side
+            out = np.empty((state.shape[0], 16), dtype=_U64)
+            out[:, 0::2] = state & _U64(0xFFFFFFFF)
+            out[:, 1::2] = state >> _U64(32)
+            return out
+
+        for msg_idx, out_idx in p["msg"]:
+            msg = vals[msg_idx].astype(np.uint8).tobytes()
+            digest = hashlib.sha512(msg).digest()
+            words = np.frombuffer(digest, dtype=">u8").astype(_U64)[None]
+            vals[out_idx] = to_halves(words)[0]
+        for nblk, (blk_idx, out_idx) in p["raw"].items():
+            B = blk_idx.shape[0]
+            state = np.repeat(_sha5.H0[None], B, axis=0)
+            halves = vals[blk_idx]  # (B, nblk, 32): (lo, hi) interleaved
+            words = (halves[:, :, 0::2] | (halves[:, :, 1::2] << _U64(32)))
+            for k in range(nblk):
+                state = _sha5.compress_blocks(words[:, k].astype(np.uint64), state)
+            vals[out_idx] = to_halves(state)
+
     def _run_call(self, p, vals):
         for fn, ins, outs in p["calls"]:
             results = fn([int(vals[w]) for w in ins])
@@ -309,6 +340,27 @@ class WitnessProgram:
                         state = _sha.compress_blocks(blk, state)
                     words = [int(v) for v in state[0]]
                 vals[np.array(outs, dtype=np.int64)] = np.array(words, dtype=_U64)
+            elif kind == "sha512":
+                call = payload
+                if call.message_byte_wires is not None:
+                    msg = bytes(int(vals[w]) & 0xFF for w in call.message_byte_wires)
+                    digest = hashlib.sha512(msg).digest()
+                else:
+                    state = _sha5.H0[None].copy()
+                    for half_wires in call.blocks_half_wires:
+                        blk = np.array(
+                            [[int(vals[half_wires[2 * wi]])
+                              | (int(vals[half_wires[2 * wi + 1]]) << 32)
+                              for wi in range(16)]], dtype=np.uint64)
+                        state = _sha5.compress_blocks(blk, state)
+                    digest = b"".join(int(v).to_bytes(8, "big") for v in state[0])
+                halves = []
+                for j in range(8):
+                    word = int.from_bytes(digest[8 * j:8 * j + 8], "big")
+                    halves.append((word & 0xFFFFFFFF, word >> 32))
+                flat = ([h for pair in halves[:4] for h in pair]
+                        + [h for pair in halves[4:] for h in pair])
+                vals[np.array(outs, dtype=np.int64)] = np.array(flat, dtype=_U64)
             else:  # every hint kind, typed or not: original callback
                 results = payload([int(vals[w]) for w in ins])
                 for w, r in zip(outs, results):

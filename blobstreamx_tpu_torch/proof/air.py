@@ -53,6 +53,8 @@ class Elem:
         return self._lift(o).__sub__(self)
 
     def __mul__(self, o):
+        if not isinstance(o, Elem) and hasattr(self.b, "mul_const"):
+            return Elem(self.b.mul_const(self.v, int(o)), self.b)
         o = self._lift(o)
         return Elem(self.b.mul(self.v, o.v), self.b)
 
@@ -116,11 +118,34 @@ class BaseLdeBackend:
     def mul(self, a, b):
         return gl.mul(a, b)
 
+    def mul_const(self, a, c: int):
+        """a * c for a python-int c: the value of mul(a, const(c)), with
+        fewer launches for c in {0, 1, p - 1} and c < 2^30."""
+        c %= gl.P
+        if c == 0:
+            return torch.zeros_like(a)
+        if c == 1:
+            return a
+        if c == gl.P - 1:
+            return gl.neg(a)
+        if c < gl.SMALL_MUL_BOUND:
+            return gl.mul_small(a, c)
+        return gl.mul(a, self.const(c))
+
     def stack(self, handles):
         return torch.stack(list(torch.broadcast_tensors(*handles)), dim=0)
 
     def gather(self, h, indices):
         return h[torch.tensor(list(indices), dtype=torch.int64, device=h.device)]
+
+    def lanes(self, h, offset: int, total: int):
+        """Stacked h placed at lanes offset.. of ``total`` lanes, zero elsewhere."""
+        return torch.nn.functional.pad(h, (0, 0, offset, total - offset - h.shape[0]))
+
+    def const_lanes(self, values):
+        """A stacked handle of constants, one a lane: (K, 1), broadcasting
+        against (N,) and (K, N) values."""
+        return gl.from_int([int(v) % gl.P for v in values], self.device)[:, None]
 
     def fold(self, h, weights):
         """Stacked (K, N) -> (N,): sum_k weights[k] * h[k]."""
@@ -157,6 +182,12 @@ class ExtPointBackend:
 
     def gather(self, h, indices):
         return [h[i] for i in indices]
+
+    def lanes(self, h, offset: int, total: int):
+        return [(0, 0)] * offset + list(h) + [(0, 0)] * (total - offset - len(h))
+
+    def const_lanes(self, values):
+        return [(int(v) % gl.P, 0) for v in values]
 
     def fold(self, h, weights):
         acc = (0, 0)
@@ -246,6 +277,22 @@ class AirBuilder:
             self.b.stack([self._rows[offset][col_base + i] for i in range(count)]),
             self.b,
         )
+
+    def stack(self, elems) -> Elem:
+        """Single values as one stacked handle, a lane each."""
+        return Elem(self.b.stack([e.v for e in elems]), self.b)
+
+    def lane(self, e: Elem, i: int) -> Elem:
+        """Lane i of a stacked handle, as a single value."""
+        return Elem(e.v[i], self.b)
+
+    def lanes(self, e: Elem, offset: int, total: int) -> Elem:
+        """A stacked handle moved to lanes offset.. of ``total``, zeros elsewhere."""
+        return Elem(self.b.lanes(e.v, offset, total), self.b)
+
+    def const_lanes(self, values) -> Elem:
+        """Constants as one stacked handle, a lane each."""
+        return Elem(self.b.const_lanes(values), self.b)
 
     def gather(self, e: Elem, indices) -> Elem:
         return Elem(self.b.gather(e.v, list(indices)), self.b)

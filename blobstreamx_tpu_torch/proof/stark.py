@@ -182,24 +182,44 @@ def _selectors_at_point(z, log_n: int):
 # device helpers
 # ---------------------------------------------------------------------------
 
+# Elements a column chunk may hold: a field multiply keeps about 14
+# temporaries of its operands' size, so a chunk of 2^26 elements bounds a
+# step's transient memory to a few GB however wide or tall the table is.
+CHUNK_ELEMS = 1 << 26
+
+
+def column_chunks(c: int, n: int):
+    """Slices of at most CHUNK_ELEMS // n (at least one) of c columns."""
+    step = max(1, CHUNK_ELEMS // n)
+    return [slice(s, min(c, s + step)) for s in range(0, c, step)]
+
+
 def _commit_matrix(cols: torch.Tensor, rate_bits: int, cap_height: int):
-    """cols: (c, n) subgroup evals -> (coeffs (c, n), lde (c, N), tree).
-    The tree's leaves are the LDE rows, read in place as lde.t()."""
+    """cols: (c, n) subgroup evals -> (coeffs (c, n), lde (c, N), tree),
+    a chunk of columns at a time. The tree's leaves are the LDE rows, read
+    in place as lde.t()."""
     dev = cols.device
-    n = cols.shape[1]
-    coeffs = nttmod.ntt(cols, inverse=True, device=dev)
-    padded = torch.nn.functional.pad(coeffs, (0, (n << rate_bits) - n))
-    lde = nttmod.ntt(nttmod.coset_shift(padded, gl.GENERATOR), device=dev)
+    c, n = cols.shape
+    coeffs = torch.empty_like(cols)
+    lde = torch.empty((c, n << rate_bits), dtype=torch.int64, device=dev)
+    for sl in column_chunks(c, n << rate_bits):
+        coeffs[sl] = nttmod.ntt(cols[sl], inverse=True, device=dev)
+        # the coset shift scales coefficient i by g^i; the padding is zero
+        shifted = nttmod.coset_shift(coeffs[sl], gl.GENERATOR)
+        lde[sl] = nttmod.ntt(torch.nn.functional.pad(shifted, (0, lde.shape[1] - n)),
+                             device=dev)
+        del shifted
     tree = merkle_cap.build_tree(lde.t(), cap_height)
     return coeffs, lde, tree
 
 
 def _eval_cols_at_points(coeffs: torch.Tensor, z_pairs) -> List[List[Tuple[int, int]]]:
-    """Evaluate base-coeff columns (c, n) at extension points.
-    Returns [per-point [per-column (c0, c1)]]."""
+    """Evaluate base-coeff columns (c, n) at extension points, a chunk of
+    columns at a time. Returns [per-point [per-column (c0, c1)]]."""
     out = []
+    chunks = column_chunks(*coeffs.shape)
     for z in z_pairs:
-        vals = nttmod.eval_poly_ext(coeffs, z)  # (c, 2)
+        vals = torch.cat([nttmod.eval_poly_ext(coeffs[sl], z) for sl in chunks])  # (c, 2)
         out.append(ext.to_int_pairs(vals))
     return out
 
@@ -214,13 +234,24 @@ def _ext_weights(alpha, k: int, device):
     return ext.from_int_pairs(w[::-1], device), cur
 
 
-def _combine_constraints_lde(builder, alpha, sels, n_points, device):
-    """Horner combination acc = acc * alpha + c over every constraint (a
-    stacked group of K lanes is K consecutive Horner steps)."""
-    _, sel_first, sel_last, sel_trans = sels
-    acc = None
-    alpha_t = ext.from_int_pair(alpha, device)
-    for con in builder.constraints:
+class HornerLde:
+    """Constraint sink for the sweep over the LDE: takes the place of
+    ``AirBuilder.constraints`` and folds the constraints, in the order the
+    AIR registers them, into the Horner combination acc = acc * alpha + c.
+    Single constraints are held back and folded a group at a time, as
+    acc * alpha^K + sum_k alpha^(K-1-k) c_k, the same value in fewer
+    launches (a stacked constraint of K lanes is such a group itself). A
+    group holds at most CHUNK_ELEMS / 4 elements, so no more constraint
+    columns are alive than that."""
+
+    def __init__(self, alpha, sels, n_points, device):
+        self.alpha, self.sels, self.n_points, self.device = alpha, sels, n_points, device
+        self.group = max(1, (CHUNK_ELEMS // 4) // n_points)
+        self._pending = []
+        self._acc = None
+
+    def append(self, con):
+        _, sel_first, sel_last, sel_trans = self.sels
         c = con.expr
         if con.scope == FIRST_ROW:
             c = gl.mul(c, sel_first)
@@ -229,14 +260,39 @@ def _combine_constraints_lde(builder, alpha, sels, n_points, device):
         elif con.scope == TRANSITION:
             c = gl.mul(c, sel_trans)
         if c.dim() == 2:
-            w, alpha_k = _ext_weights(alpha, c.shape[0], device)
-            group = ext.sum(ext.scalar_mul(w[:, None, :], c), 0)
-            acc = group if acc is None else ext.add(
-                ext.mul(acc, ext.from_int_pair(alpha_k, device)), group)
+            self._flush()
+            for start in range(0, c.shape[0], self.group):
+                self._fold(c[start:start + self.group])
         else:
-            c = ext.from_base(c.expand(n_points))
-            acc = c if acc is None else ext.add(ext.mul(acc, alpha_t), c)
-    return acc
+            self._pending.append(c.expand(self.n_points))
+            if len(self._pending) == self.group:
+                self._flush()
+
+    def _flush(self):
+        if self._pending:
+            group, self._pending = torch.stack(self._pending), []
+            self._fold(group)
+
+    def _fold(self, c):
+        """acc <- acc * alpha^K + sum_k alpha^(K-1-k) c_k for (K, N) c."""
+        w, alpha_k = _ext_weights(self.alpha, c.shape[0], self.device)
+        group = ext.sum(ext.scalar_mul(w[:, None, :], c), 0)
+        self._acc = group if self._acc is None else ext.add(
+            ext.mul(self._acc, ext.from_int_pair(alpha_k, self.device)), group)
+
+    @property
+    def acc(self):
+        """The combination of every constraint appended so far, (N, 2)."""
+        self._flush()
+        return self._acc
+
+
+class Discard:
+    """Constraint sink that keeps nothing (a sweep that only needs the
+    AIR's bus interactions)."""
+
+    def append(self, con):
+        pass
 
 
 def _combine_constraints_point(builder, alpha, sels_pt):
@@ -265,14 +321,29 @@ def _observe_preamble(transcript: Transcript, air: Air, n: int, publics):
     transcript.observe_elements([int(p) % gl.P for p in publics])
 
 
+class RolledColumns:
+    """Columns of a (c, n) matrix read at row i + shift: column j is rolled
+    when it is read, so no shifted copy of the whole matrix is made."""
+
+    def __init__(self, mat: torch.Tensor, shift: int):
+        self.mat, self.shift = mat, shift
+
+    def __getitem__(self, j: int) -> torch.Tensor:
+        return torch.roll(self.mat[j], -self.shift)
+
+    def __len__(self):
+        return self.mat.shape[0]
+
+
+def offset_rows(mat: torch.Tensor, offsets, stride: int = 1):
+    """(c, n) columns -> {offset k: per-column (n,) values at rows i + k*stride}."""
+    return {k: RolledColumns(mat, k * stride) if k else list(mat.unbind(0))
+            for k in offsets}
+
+
 def _offset_rows(lde: torch.Tensor, offsets, rate_bits: int):
-    """LDE (c, N) -> {offset: [per-column (N,) tensors of rows i + k*blowup]}."""
-    blowup = 1 << rate_bits
-    out = {}
-    for k in offsets:
-        shifted = torch.roll(lde, -k * blowup, dims=1) if k else lde
-        out[k] = list(shifted.unbind(0))
-    return out
+    """LDE (c, N) -> {offset: per-column (N,) values of rows i + k*blowup}."""
+    return offset_rows(lde, offsets, 1 << rate_bits)
 
 
 def _open_rows(lde: torch.Tensor, indices) -> List[List[int]]:

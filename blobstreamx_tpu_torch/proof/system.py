@@ -39,8 +39,9 @@ from .stark import (
     ProverKey,
     StarkConfig,
     StarkProof,
+    Discard,
+    HornerLde,
     VerifierKey,
-    _combine_constraints_lde,
     _combine_constraints_point,
     _commit_matrix,
     _eval_cols_at_points,
@@ -54,6 +55,8 @@ from .stark import (
     _selector_tables,
     _selectors_at_point,
     build,
+    column_chunks,
+    offset_rows,
 )
 from .transcript import Transcript
 
@@ -137,6 +140,31 @@ def _fingerprint(builder: AirBuilder, inter, gamma_pair) -> ExtElem:
     return acc
 
 
+def _stacked_dens(inters, gamma, delta, n: int, dev) -> torch.Tensor:
+    """delta + fingerprint of each interaction over the domain, as one
+    (K, n, 2) tensor: channel + sum_k gamma^(k+1) arg_k, the arguments of
+    all K interactions stacked a position at a time (a missing argument is
+    0). The same values as ``_fingerprint``, in a few launches."""
+    k_max = max(len(inter.args) for inter in inters)
+    chan = gl.from_int([(inter.channel + delta[0]) % gl.P for inter in inters], dev)
+    f0 = chan[:, None].expand(len(inters), n)
+    f1 = gl.scalar(delta[1], dev).expand(len(inters), n)
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    gp = (1, 0)
+    for k in range(k_max):
+        gp = F2.mul(gp, gamma)
+        a = torch.stack([inter.args[k].v.expand(n) if k < len(inter.args) else zero
+                         for inter in inters])
+        f0 = gl.add(f0, gl.mul(a, gl.scalar(gp[0], dev)))
+        f1 = gl.add(f1, gl.mul(a, gl.scalar(gp[1], dev)))
+    return ext.join(f0, f1)
+
+
+def _stacked_mults(inters, n: int) -> torch.Tensor:
+    return torch.stack([(inter.mult.v if isinstance(inter.mult, Elem) else inter.mult)
+                        .expand(n) for inter in inters])
+
+
 def message_term(channel: int, args: Sequence[int], gamma, delta) -> Tuple[int, int]:
     """Host-side 1/(delta + fingerprint) for a public message."""
     f = (channel % gl.P, 0)
@@ -156,11 +184,29 @@ def _emit_logup_constraints(builder: AirBuilder, total_pair) -> None:
     n_i = len(inters)
     gamma = builder._challenges[0]
     delta = builder._challenges[1]
-    for i, inter in enumerate(inters):
-        inv = builder.aux_local_ext(i)
-        f = _fingerprint(builder, inter, gamma)
-        den = builder.ext_const(delta) + f
-        builder.assert_zero_ext(inv * den - inter.mult)
+    if isinstance(builder.b, BaseLdeBackend):
+        # the same constraints in the same order, computed a chunk of
+        # interactions at a time
+        b, n = builder.b, builder.b.n
+        for sl in column_chunks(n_i, 2 * n):
+            chunk = inters[sl]
+            inv = ext.join(
+                torch.stack([builder.aux_local(2 * i).v for i in range(sl.start, sl.stop)]),
+                torch.stack([builder.aux_local(2 * i + 1).v
+                             for i in range(sl.start, sl.stop)]))
+            e = ext.mul(inv, _stacked_dens(chunk, gamma, delta, n, b.device))
+            e0 = gl.sub(ext.c0(e), _stacked_mults(chunk, n))
+            e1 = ext.c1(e)
+            del inv, e
+            for k in range(len(chunk)):
+                builder.assert_zero(Elem(e0[k], b))
+                builder.assert_zero(Elem(e1[k], b))
+    else:
+        for i, inter in enumerate(inters):
+            inv = builder.aux_local_ext(i)
+            f = _fingerprint(builder, inter, gamma)
+            den = builder.ext_const(delta) + f
+            builder.assert_zero_ext(inv * den - inter.mult)
 
     def signed_sum(get):
         acc = None
@@ -191,12 +237,6 @@ def _emit_logup_constraints(builder: AirBuilder, total_pair) -> None:
     )
 
 
-def _trace_rows(cols: torch.Tensor, offsets) -> Dict[int, list]:
-    """(c, n) columns -> {offset: [per-column values at row i + k]}."""
-    return {k: list((torch.roll(cols, -k, dims=1) if k else cols).unbind(0))
-            for k in offsets}
-
-
 def _build_logup_aux(air: Air, trace: torch.Tensor, pre_trace: Optional[torch.Tensor],
                      challenges, publics: Sequence[int] = ()):
     """Evaluate the interactions over the raw trace (columns (c, n) on the
@@ -206,32 +246,31 @@ def _build_logup_aux(air: Air, trace: torch.Tensor, pre_trace: Optional[torch.Te
     n = trace.shape[1]
     builder = AirBuilder(
         BaseLdeBackend(n, dev),
-        rows=_trace_rows(trace, air.row_offsets),
+        rows=offset_rows(trace, air.row_offsets),
         publics=list(publics) + [0] * 64,
         aux_rows=None,
         challenges=challenges,
-        pre_rows=_trace_rows(pre_trace, air.pre_offsets) if air.pre_width else None,
+        pre_rows=offset_rows(pre_trace, air.pre_offsets) if air.pre_width else None,
     )
+    builder.constraints = Discard()  # only the interactions are needed
     air.eval(builder)
     inters = builder.interactions
     gamma, delta = challenges[0], challenges[1]
-    delta_t = ext.from_int_pair(delta, dev)
-    dens = []
-    for inter in inters:
-        f = _fingerprint(builder, inter, gamma)
-        dens.append(ext.add(delta_t, ext.join(f.c0.v, f.c1.v)))
-    invs = ext.inv(torch.stack(dens))  # one batched inversion, (I, n, 2)
     cols = []
     signed = None
-    for i, inter in enumerate(inters):
-        mult = inter.mult.v if isinstance(inter.mult, Elem) else inter.mult
-        inv = ext.scalar_mul(invs[i], mult)
+    # a chunk of interactions at a time: stacked fingerprints, one batched
+    # inversion, the signed terms summed over the chunk
+    for sl in column_chunks(len(inters), 2 * n):
+        chunk = inters[sl]
+        inv = ext.scalar_mul(ext.inv(_stacked_dens(chunk, gamma, delta, n, dev)),
+                             _stacked_mults(chunk, n))  # (chunk, n, 2)
         cols.append(inv)
-        term = inv if inter.sign > 0 else ext.neg(inv)
-        signed = term if signed is None else ext.add(signed, term)
+        neg = torch.tensor([inter.sign < 0 for inter in chunk], device=dev)[:, None, None]
+        part = ext.sum(torch.where(neg, ext.neg(inv), inv), 0)
+        signed = part if signed is None else ext.add(signed, part)
     run = ext.prefix_sum(signed)
-    cols.append(run)
-    aux = torch.stack(cols).permute(0, 2, 1).reshape(2 * len(cols), n)
+    cols.append(run[None])
+    aux = torch.cat(cols).permute(0, 2, 1).reshape(2 * (len(inters) + 1), n)
     total = ext.to_int_pairs(run[-1])[0]
     return aux.contiguous(), total
 
@@ -295,8 +334,11 @@ def _deep_combination(st, zeta, alpha2, log_n, rate_bits, dev) -> torch.Tensor:
     for k, cols, ys in groups:
         c = len(ys)
         w = weights[j:j + c]
-        # sum_i w_i v_i - sum_i w_i y_i
-        wv = ext.sum(ext.scalar_mul(w[:, None, :], cols), 0)
+        # sum_i w_i v_i - sum_i w_i y_i, a chunk of columns at a time
+        wv = None
+        for sl in column_chunks(c, cols.shape[1]):
+            part = ext.sum(ext.scalar_mul(w[sl, None, :], cols[sl]), 0)
+            wv = part if wv is None else ext.add(wv, part)
         wy = (0, 0)
         for wi, y in zip(w_host[j:j + c], ys):
             wy = F2.add(wy, F2.mul(wi, (int(y[0]), int(y[1]))))
@@ -371,8 +413,11 @@ def prove_system(specs: List[TableSpec], cfg: StarkConfig = StarkConfig(),
         st["aux_width"] = 0
         if st["n_inter"]:
             pre = st["pk"].pre_trace if air.pre_width else None
-            aux, st["bus_total"] = _build_logup_aux(air, st["main_trace"], pre,
-                                                    challenges, st["spec"].publics)
+            # named ranges let a profile attribute device kernels to a table
+            with torch.profiler.record_function(f"logup_aux:{st['spec'].name}"):
+                aux, st["bus_total"] = _build_logup_aux(air, st["main_trace"], pre,
+                                                        challenges, st["spec"].publics)
+            del st["main_trace"]
             st["aux_width"] = aux.shape[0]
             st["aux_coeffs"], st["aux_lde"], st["aux_tree"] = _commit_matrix(
                 aux, cfg.rate_bits, cfg.cap_height)
@@ -396,12 +441,14 @@ def prove_system(specs: List[TableSpec], cfg: StarkConfig = StarkConfig(),
             pre_rows=(_offset_rows(st["pk"].pre_lde, tuple(air.pre_offsets),
                                    cfg.rate_bits) if air.pre_width else None),
         )
-        air.eval(builder)
-        if st["n_inter"]:
-            _emit_logup_constraints(builder, st["bus_total"])
         sels = _selector_tables(log_n, cfg.rate_bits, dev)
-        combined = _combine_constraints_lde(builder, alpha, sels, N, dev)
-        del builder
+        builder.constraints = sink = HornerLde(alpha, sels, N, dev)
+        with torch.profiler.record_function(f"constraint_sweep:{st['spec'].name}"):
+            air.eval(builder)
+            if st["n_inter"]:
+                _emit_logup_constraints(builder, st["bus_total"])
+        combined = sink.acc
+        del builder, sink
         quotient = ext.scalar_mul(combined, sels[0])  # (N, 2)
         q_coeffs = nttmod.coset_shift(
             nttmod.ntt(quotient.t(), inverse=True, device=dev), g_inv)  # (2, N)
@@ -538,6 +585,20 @@ def verify_system(
     challenges = []
     if any_bus:
         challenges = [transcript.get_extension_challenge() for _ in range(2)]
+        # the bus balance needs only the challenges: checked first, so a
+        # wrong public message is rejected before the openings are read
+        gamma, delta = challenges
+        total = (0, 0)
+        for t in proof.bus_totals:
+            if t is not None:
+                total = F2.add(total, (t[0] % gl.P, t[1] % gl.P))
+        for channel, args, sign in public_messages or []:
+            term = message_term(channel, args, gamma, delta)
+            if sign < 0:
+                term = F2.sub((0, 0), term)
+            total = F2.add(total, term)
+        if total != (0, 0):
+            return False
 
     for i, m in enumerate(metas):
         p = proof.table_proofs[i]
@@ -682,18 +743,4 @@ def verify_system(
         if not fri.fri_verify(p.fri_proof, log_N, transcript, cfg.fri(), eval_at_index):
             return False
 
-    # bus balance
-    if any_bus:
-        gamma, delta = challenges
-        total = (0, 0)
-        for t in proof.bus_totals:
-            if t is not None:
-                total = F2.add(total, (t[0] % gl.P, t[1] % gl.P))
-        for channel, args, sign in public_messages or []:
-            term = message_term(channel, args, gamma, delta)
-            if sign < 0:
-                term = F2.sub((0, 0), term)
-            total = F2.add(total, term)
-        if total != (0, 0):
-            return False
     return True

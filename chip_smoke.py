@@ -34,6 +34,26 @@ Run from the repository root. It prints one JSON line per phase:
                 bytes 256 rows), verify, tamper probe, the data root against
                 the fixture, kernel launches, peak memory
   circuit_profile  that prove again under torch.profiler
+  next_header_small, header_range_small
+                NextHeaderCircuit(vss=2) at 10000 and HeaderRangeCircuit(vss=2,
+                1, 4) over 10000-10004 on the recorded fixtures under the
+                tests' config: each proof's SHA-256 equals its recorded
+                digest (testing/reference_digests.py), verified
+  header_range_full  HeaderRangeCircuit(vss=2, 1, 4) over 10000-10004 under
+                the default StarkConfig (bench.py's shape): witness, traces,
+                prove, verify, tamper probe on publics[80], the target hash and
+                data commitment against the fixtures, launches, peak memory
+  next_header_full  NextHeaderCircuit("mocha-4", vss=128) under the default
+                StarkConfig over a synthetic chain of 128 validators
+                (testing/synthetic.py, written to a temporary directory): the
+                same fields, tamper probe on publics[40]
+  next_header_profile  that prove again under torch.profiler, with the
+                device kernels of the ed table's LogUp aux build and
+                constraint sweep
+  kernel_shapes every NTT and Poseidon call shape the two full phases gave
+                the kernels: launches, time, bound, equality with the plain
+                version (Poseidon leaves of more than 2^16 rows compared on
+                their first and last 2^12 rows)
 
 then the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero without the ok line.
@@ -43,15 +63,23 @@ machine needs PyTorch with CUDA and nvcc; it needs no JAX.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
 N_FULL = 1 << 16
+# validator slots of next_header_full: the production registry's
+# next_header at vss=128
+NEXT_HEADER_VSS = 128
+# Poseidon leaf hashes held against the plain version on this many rows at
+# each end when taller (a row's digest depends on that row alone)
+POSEIDON_CHECK_ROWS = 1 << 12
 # recorded mocha-4 chain data (headers, data commitments), read as JSON
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "blobstreamx_tpu", "fixtures", "mocha-4")
@@ -112,6 +140,21 @@ def max_abs_err(torch, a, b) -> float:
 def rand_field(torch, gl, rng, shape, dev):
     import numpy as np
     return gl.from_int(rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev)
+
+
+def card_field(torch, gen, shape, dev):
+    """Field elements drawn on the card (a main-path shape may hold billions):
+    (hi << 32) | lo with hi < 2^32 - 1, so every value is below p. The low
+    halves are drawn a chunk at a time, so the draw needs little more
+    memory than its result."""
+    x = torch.randint(0, (1 << 32) - 1, shape, generator=gen, device=dev, dtype=torch.int64)
+    x <<= 32
+    flat = x.view(-1)
+    for start in range(0, flat.numel(), 1 << 26):
+        part = flat[start:start + (1 << 26)]
+        part |= torch.randint(0, 1 << 32, part.shape, generator=gen, device=dev,
+                              dtype=torch.int64)
+    return x
 
 
 def edge_field(torch, gl, rng, shape, dev):
@@ -500,29 +543,50 @@ def phase_proof_full(torch, np, dev, n_rows: int = N_FULL, n_blocks: int = 32):
     return launches
 
 
-def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0):
+def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0,
+                  ranges=()):
     """A second prove under torch.profiler: device busy time (the sum of
-    kernel times: one stream, so they do not overlap) against the
-    unprofiled prove's wall time, and the top device kernels. ``host_s``
-    is the part of prove_s that is host-only work (witness and traces)."""
+    the device events' times: one stream, so they do not overlap) against
+    the unprofiled prove's wall time, and the top device kernels.
+    ``host_s`` is the part of prove_s that is host-only work (witness and
+    traces); ``ranges`` names prover ranges (proof/system.py) whose kernel
+    launches are counted. The profiler's raw events are read directly: a
+    circuit prove has millions, too many to turn into Python event trees."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prove()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # CPU ops also carry their kernels' time
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us, e.count))
+    traced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = prof.profiler.kineto_results.events()
+    by_name = collections.defaultdict(lambda: [0, 0])  # name -> [ns, count]
+    launch_starts, spans = [], []
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if name.startswith(tuple(ranges)):  # the ranges' device-side copies
+                continue
+            rec = by_name[name]
+            rec[0] += e.duration_ns()
+            rec[1] += 1
+        elif name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx"):
+            launch_starts.append(e.start_ns())
+        elif ranges and name.startswith(tuple(ranges)):
+            spans.append((name, e.start_ns(), e.end_ns()))
+    launch_starts.sort()
+    in_ranges = {}
+    for name, start, end in spans:
+        n = bisect.bisect_right(launch_starts, end) - bisect.bisect_left(launch_starts, start)
+        in_ranges[name] = {"launches": n, "seconds": (end - start) / 1e9}
+    rows = sorted(((k, ns / 1e3, c) for k, (ns, c) in by_name.items()), key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in rows) / 1e6
-    rows.sort(key=lambda r: -r[1])
     ours = {name: {"device_s": sum(us for k, us, _ in rows if tag in k) / 1e6,
                    "launches": sum(c for k, _, c in rows if tag in k)}
             for name, tag in (("ntt", "ntt_"), ("poseidon", "poseidon_kernel"),
@@ -533,7 +597,9 @@ def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0)
          device_idle_share_without_host_only=(1 - busy_s / (prove_s - host_s))
          if busy_s else None,
          device_kernels=sum(c for _, _, c in rows), ours=ours,
-         top=[{"kernel": k[:80], "device_s": us / 1e6, "count": c} for k, us, c in rows[:8]])
+         top=[{"kernel": k[:80], "device_s": us / 1e6, "count": c} for k, us, c in rows[:8]],
+         ranges=in_ranges, traced_prove_s=traced_s,
+         read_events_s=time.perf_counter() - t0)
 
 
 def phase_circuit_small(torch, dev):
@@ -635,6 +701,210 @@ def phase_circuit_full(torch, np, dev, batch_size: int = 32, start: int = 10000,
     return launches
 
 
+class ShapeLog:
+    """While active, records the shape of every NTT and Poseidon leaf-hash
+    kernel call. The wrappers count their launches on the module attribute
+    they are reached by, which is the recorder while it is active; on exit
+    those counts are added back to the wrappers'."""
+
+    def __init__(self, nttmod, pos):
+        self.nttmod, self.pos = nttmod, pos
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        self._ntt, self._hash = self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel
+
+        def ntt(x, inverse=False):
+            self.calls[("ntt", tuple(x.shape), bool(inverse))] += 1
+            return self._ntt(x, inverse)
+
+        def hash_no_pad(x):
+            col_major = x.dim() == 2 and not x.is_contiguous() and x.t().is_contiguous()
+            self.calls[("poseidon", tuple(x.shape), col_major)] += 1
+            return self._hash(x)
+
+        ntt.launches = hash_no_pad.launches = 0
+        self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel = ntt, hash_no_pad
+        return self
+
+    def __exit__(self, *exc):
+        self._ntt.launches += self.nttmod.ntt_kernel.launches
+        self._hash.launches += self.pos.hash_no_pad_kernel.launches
+        self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel = self._ntt, self._hash
+
+
+def phase_kernel_shapes(torch, np, logs):
+    """Every kernel call shape of the full phases: its launches a prove, the
+    kernel's time and bound at that shape on random field elements, and
+    exact equality with the plain version on the same tensor."""
+    from blobstreamx_tpu_torch.field import ntt as nttmod
+    from blobstreamx_tpu_torch.ops import poseidon as pos
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    rows_out, worst = [], 0.0
+    shapes = sorted({key for log in logs.values() for key in log})
+    for kind, shape, flag in shapes:
+        launches = {path: log.get((kind, shape, flag), 0) for path, log in logs.items()}
+        if kind == "ntt":
+            x = card_field(torch, gen, shape, dev)
+            err = max_abs_err(torch, nttmod.ntt_kernel(x, flag), nttmod.ntt_plain(x, flag))
+            ms = cuda_ms(torch, lambda: nttmod.ntt_kernel(x, flag), 3)
+            b = int(np.prod(shape[:-1]))
+            bound_ms, bound_by = ntt_bound(b, shape[-1])
+            checked = shape[0] if len(shape) > 1 else 1
+        else:
+            m = card_field(torch, gen, shape[::-1] if flag else shape, dev)
+            leaves = m.t() if flag else m
+            got = pos.hash_no_pad_kernel(leaves)
+            n = shape[0]
+            if n > 2 * POSEIDON_CHECK_ROWS:
+                sel = [slice(0, POSEIDON_CHECK_ROWS), slice(n - POSEIDON_CHECK_ROWS, n)]
+            else:
+                sel = [slice(0, n)]
+            err = max(max_abs_err(torch, got[sl], pos.hash_no_pad_plain(leaves[sl]))
+                      for sl in sel)
+            ms = cuda_ms(torch, lambda: pos.hash_no_pad_kernel(leaves), 3)
+            bound_ms, bound_by = poseidon_bound(shape[0], shape[1])
+            checked = sum(sl.stop - sl.start for sl in sel)
+            del m, leaves, got
+        worst = max(worst, err)
+        rows_out.append({"kernel": kind, "shape": list(shape),
+                         ("inverse" if kind == "ntt" else "col_major"): flag,
+                         "launches": launches, "ms": ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "rows_checked": checked,
+                         "equal_plain": err == 0})
+        torch.cuda.empty_cache()
+    emit("kernel_shapes", paths=sorted(logs), calls=rows_out, max_abs_err=worst)
+    if worst:
+        raise SystemExit("a kernel disagrees with its plain version at a main-path shape")
+
+
+def tendermint_circuit(name: str, fetcher_dir: str, vss: int = 2):
+    """The slice's two circuits: (circuit, prove args, public slices and
+    their expected bytes, tamper byte)."""
+    from blobstreamx_tpu_torch.circuits import input as pinput
+    from blobstreamx_tpu_torch.circuits.header_range import HeaderRangeCircuit
+    from blobstreamx_tpu_torch.circuits.next_header import NextHeaderCircuit
+
+    if name == "next_header":
+        fetcher = pinput.StepInputFetcher(fetcher_dir)
+        circuit = NextHeaderCircuit(chain_id="mocha-4", vss=vss, fetcher=fetcher)
+        expect = {"next_header_hash": (slice(40, 72), fetcher.get_header(10001).hash()),
+                  "data_commitment": (slice(72, 104),
+                                      fetcher.get_data_commitment(10000, 10001))}
+        return circuit, (10000,), expect, 40
+    fetcher = pinput.SkipInputFetcher(fetcher_dir)
+    circuit = HeaderRangeCircuit(chain_id="mocha-4", vss=vss, nb_map_jobs=1, batch_size=4,
+                                 fetcher=fetcher)
+    expect = {"target_header_hash": (slice(48, 80), fetcher.get_header(10004).hash()),
+              "data_commitment": (slice(80, 112), fetcher.get_data_commitment(10000, 10004))}
+    return circuit, (10000, 10004), expect, 80
+
+
+def phase_tendermint_small(torch, dev, name: str):
+    """A slice circuit at vss=2 on the card against its recorded digest."""
+    from blobstreamx_tpu_torch.proof import serde, stark
+    from blobstreamx_tpu_torch.testing import reference_digests as refs
+
+    ref = {"next_header": refs.NEXT_HEADER_2, "header_range": refs.HEADER_RANGE_2}[name]
+    cfg = stark.StarkConfig(**ref["config"])
+    circuit, args, expect, tamper_at = tendermint_circuit(name, FIXTURES)
+    t0 = time.perf_counter()
+    proof, publics, _, _ = circuit.prove(*args, cfg, device=dev)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    text = serde.dumps(proof)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    publics_ok = {k: bytes(publics[sl]) == v for k, (sl, v) in expect.items()}
+    t0 = time.perf_counter()
+    ok = circuit.verify(serde.loads(text), publics, cfg, device=dev)
+    verify_s = time.perf_counter() - t0
+    emit(f"{name}_small", circuit=ref["circuit"], config=ref["config"], proof_sha256=digest,
+         reference_sha256=ref["proof_sha256"], reference_of=ref["reference_of"],
+         equal_reference=digest == ref["proof_sha256"], publics_ok=publics_ok, verified=ok,
+         prove_s=prove_s, verify_s=verify_s)
+    if not (digest == ref["proof_sha256"] and all(publics_ok.values()) and ok):
+        raise SystemExit(f"{name}_small failed")
+
+
+def phase_tendermint_full(torch, np, dev, name: str, fetcher_dir: str, vss: int, note: str):
+    """A slice circuit through its entry point under the default
+    StarkConfig: witness, traces, prove, verify, tamper probe, public bytes
+    against the chain's; kernel launches and call shapes, peak memory.
+    Returns (launches, shape log, a prove for the profile)."""
+    from blobstreamx_tpu_torch.field import ntt as nttmod
+    from blobstreamx_tpu_torch.ops import poseidon as pos
+    from blobstreamx_tpu_torch.proof import serde, stark, system
+
+    cfg = stark.StarkConfig()
+    t0 = time.perf_counter()
+    circuit, args, expect, tamper_at = tendermint_circuit(name, fetcher_dir, vss)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pks, vks = circuit.build_keys(cfg, dev)  # the preprocessed oracles: set-up
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nttmod.ntt_kernel.launches = 0
+    pos.permute_kernel.launches = 0
+    pos.hash_no_pad_kernel.launches = 0
+    timer = system.PhaseTimer()
+    with ShapeLog(nttmod, pos) as log:
+        t0 = time.perf_counter()
+        proof, publics, _, _ = circuit.prove(*args, cfg, pks=pks, device=dev, timer=timer)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    launches = {"ntt": nttmod.ntt_kernel.launches, "poseidon": pos.launches()}
+    peak = torch.cuda.max_memory_allocated()
+
+    c = circuit.circuit
+    rows = {t: int(tp.n_rows) for t, tp in zip(c._table_names(), proof.table_proofs)}
+    widths = {t: air.width for t, air in zip(c._table_names(), c.airs())}
+    publics_ok = {k: bytes(publics[sl]) == v for k, (sl, v) in expect.items()}
+    text = serde.dumps(proof)
+    t0 = time.perf_counter()
+    ok = circuit.verify(proof, publics, cfg, vks=vks, device=dev)
+    verify_s = time.perf_counter() - t0
+    bad = list(publics)
+    bad[tamper_at] ^= 1
+    rejected = not circuit.verify(proof, bad, cfg, vks=vks, device=dev)
+    phases = dict(timer.seconds)
+    host_s = phases.get("witness", 0) + phases.get("traces", 0)
+    emit(f"{name}_full", circuit=type(circuit).__name__, vss=vss, note=note,
+         config=vars(cfg), rows=rows, widths=widths,
+         ed_signatures=len(c.b.ed_calls), sha512_calls=len(c.b.sha512_calls),
+         sha_calls=len(c.b.sha_calls), build_s=build_s, keys_s=keys_s,
+         witness_s=phases.get("witness"), traces_s=phases.get("traces"), prove_s=prove_s,
+         system_prove_s=prove_s - host_s, phases_s=phases, verify_s=verify_s, verified=ok,
+         tamper_rejected=rejected, tamper_byte=tamper_at, publics_ok=publics_ok,
+         launches=launches, max_memory_allocated=peak, proof_json_bytes=len(text),
+         proof_sha256=hashlib.sha256(text.encode()).hexdigest())
+    if not (ok and rejected and all(publics_ok.values()) and all(launches.values())):
+        raise SystemExit(f"{name}_full failed")
+
+    def again():
+        return circuit.prove(*args, cfg, pks=pks, device=dev)
+
+    return launches, dict(log.calls), (again, prove_s, host_s)
+
+
+def synthetic_chain(tmp: str, n_validators: int) -> str:
+    """A chain of two signed blocks (10000, 10001) with ``n_validators``
+    validators, deterministic from the generator's fixed seed tag."""
+    from blobstreamx_tpu_torch.testing import synthetic
+
+    t0 = time.perf_counter()
+    synthetic.make_chain_dir(tmp, chain_id="mocha-4", n_validators=n_validators,
+                             start=10000, n_blocks=1, ranges=[(10000, 10001)])
+    emit("synthetic_chain", validators=n_validators, heights=[10000, 10001],
+         seconds=time.perf_counter() - t0)
+    return tmp
+
+
 def main() -> int:
     import torch
 
@@ -654,9 +924,27 @@ def main() -> int:
     paths["proof_full"] = phase_proof_full(torch, np, dev)
     phase_circuit_small(torch, dev)
     paths["circuit_full"] = phase_circuit_full(torch, np, dev)
-    # each kernel's launches on this slice's path: the circuit prove for the
-    # NTT and Poseidon, the bench entry point for SHA-256
-    main = {"ntt": "circuit_full", "poseidon": "circuit_full", "sha256": "sha256_bench"}
+    phase_tendermint_small(torch, dev, "next_header")
+    phase_tendermint_small(torch, dev, "header_range")
+    shape_logs = {}
+    paths["header_range_full"], shape_logs["header_range_full"], _ = phase_tendermint_full(
+        torch, np, dev, "header_range", FIXTURES, 2, "bench.py's shape, recorded fixtures")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        chain = synthetic_chain(tmp, NEXT_HEADER_VSS)
+        paths["next_header_full"], shape_logs["next_header_full"], again = \
+            phase_tendermint_full(torch, np, dev, "next_header", chain, NEXT_HEADER_VSS,
+                                  f"{NEXT_HEADER_VSS} synthetic validators, all signing")
+        prove, prove_s, host_s = again
+        phase_profile(torch, "next_header_profile", prove, prove_s, host_s=host_s,
+                      ranges=("logup_aux:", "constraint_sweep:"))
+        del prove, again
+    torch.cuda.empty_cache()
+    phase_kernel_shapes(torch, np, shape_logs)
+    # each kernel's launches on this slice's path: the full-width next_header
+    # prove for the NTT and Poseidon, the bench entry point for SHA-256
+    main = {"ntt": "next_header_full", "poseidon": "next_header_full",
+            "sha256": "sha256_bench"}
     table = []
     for name, replaces in (("ntt", "blobstreamx_tpu/ops/pallas/ntt.py:78"),
                            ("poseidon", "blobstreamx_tpu/ops/pallas/poseidon.py:113"),

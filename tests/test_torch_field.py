@@ -205,7 +205,8 @@ def _entry_point_calls():
     """Each public function of the port that takes ``device``, called with
     the default (None: the card) on a small input."""
     from blobstreamx_tpu_torch.chips import bytes as bytes_chip
-    from blobstreamx_tpu_torch.circuits import data_commitment, input, map_job
+    from blobstreamx_tpu_torch.circuits import data_commitment, header_range, input, map_job
+    from blobstreamx_tpu_torch.circuits import next_header
     from blobstreamx_tpu_torch.field import ntt
     from blobstreamx_tpu_torch.frontend import builder
     from blobstreamx_tpu_torch.ops import poseidon, sha256
@@ -247,6 +248,14 @@ def _entry_point_calls():
             2, input.InputDataFetcher(fixtures)).prove(10000, 10002, cfg),
         "SubchainMapCircuit.prove": lambda: map_job.SubchainMapCircuit(
             2, input.InputDataFetcher(fixtures)).prove(10000, 10004, bytes(32), cfg),
+        "NextHeaderCircuit.prove": lambda: next_header.NextHeaderCircuit(
+            vss=2, fetcher=input.StepInputFetcher(fixtures)).prove(10000, cfg),
+        "NextHeaderCircuit.build_keys": lambda: next_header.NextHeaderCircuit(
+            vss=2, fetcher=input.StepInputFetcher(fixtures)).build_keys(cfg),
+        "HeaderRangeCircuit.prove": lambda: header_range.HeaderRangeCircuit(
+            vss=2, fetcher=input.SkipInputFetcher(fixtures)).prove(10000, 10004, cfg),
+        "HeaderRangeCircuit.build_keys": lambda: header_range.HeaderRangeCircuit(
+            vss=2, fetcher=input.SkipInputFetcher(fixtures)).build_keys(cfg),
     }
 
 
@@ -257,7 +266,9 @@ ENTRY_POINTS = ["ntt.ntt", "ntt.lde", "ntt.interpolate_coeffs", "poseidon.permut
                 "system.verify_system", "system.check_bus_balance",
                 "CompiledCircuit.prove", "CompiledCircuit.verify",
                 "CompiledCircuit.build_keys", "DataCommitmentCircuit.prove",
-                "SubchainMapCircuit.prove"]
+                "SubchainMapCircuit.prove", "NextHeaderCircuit.prove",
+                "NextHeaderCircuit.build_keys", "HeaderRangeCircuit.prove",
+                "HeaderRangeCircuit.build_keys"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -133,9 +133,11 @@ def sparse_test_states(seed: int = 11) -> np.ndarray:
 
 
 def test_sparse_form_matches_permute_py():
+    """The sparse form (this model, and permute_py, which runs it) against
+    the instance's round-by-round definition."""
     for row in sparse_test_states():
         ints = [int(v) for v in row]
-        assert permute_sparse_py(ints) == pos.permute_py(ints)
+        assert permute_sparse_py(ints) == pos.permute_py_rounds(ints) == pos.permute_py(ints)
 
 
 def test_sparse_form_matches_reference_permute():
