@@ -12,6 +12,7 @@ and runs the plain staged version ``ntt_plain`` for a tensor on the CPU.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -141,10 +142,13 @@ def ntt_kernel(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "bsx_ntt")
     ntt_kernel.launches += 1
+    ntt_kernel.calls[(tuple(x.shape), bool(inverse))] += 1
     return out
 
 
+# launches, and launches by (shape, inverse)
 ntt_kernel.launches = 0
+ntt_kernel.calls = collections.Counter()
 
 
 def ntt(coeffs, inverse: bool = False, device=None) -> torch.Tensor:

@@ -13,6 +13,7 @@ host use (the transcript, grinding and the verifier).
 
 from __future__ import annotations
 
+import collections
 import functools
 import hashlib
 import math
@@ -284,7 +285,9 @@ def _rows(x: torch.Tensor, what: str):
     return x, x.stride(0), x.stride(1)
 
 
-def _launch(wrapper, fn: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
+def _launch(wrapper, key, fn: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
+    """Runs ``fn`` and counts the launch on ``wrapper``, in all and under
+    ``key``: the input's shape and whether it is a column-major matrix."""
     dev = x.device
     lib = _kernel_lib(dev.index if dev.index is not None else torch.cuda.current_device())
     with torch.cuda.device(dev):
@@ -292,6 +295,7 @@ def _launch(wrapper, fn: str, x: torch.Tensor, out: torch.Tensor, *args) -> None
                               torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, fn)
     wrapper.launches += 1
+    wrapper.calls[key] += 1
 
 
 def permute_kernel(state: torch.Tensor) -> torch.Tensor:
@@ -300,11 +304,14 @@ def permute_kernel(state: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"Poseidon state must have {WIDTH} lanes")
     x, rs, cs = _rows(state, "permute_kernel")
     out = torch.empty((x.shape[0], WIDTH), dtype=torch.int64, device=x.device)
-    _launch(permute_kernel, "bsx_poseidon_permute", x, out, x.shape[0], rs, cs)
+    key = (tuple(state.shape), state.dim() == 2 and not x.is_contiguous())
+    _launch(permute_kernel, key, "bsx_poseidon_permute", x, out, x.shape[0], rs, cs)
     return out.reshape(state.shape)
 
 
+# launches, and launches by (shape, column-major)
 permute_kernel.launches = 0
+permute_kernel.calls = collections.Counter()
 
 
 def hash_no_pad_kernel(inputs: torch.Tensor) -> torch.Tensor:
@@ -314,11 +321,13 @@ def hash_no_pad_kernel(inputs: torch.Tensor) -> torch.Tensor:
     n = inputs.shape[-1]
     x, rs, cs = _rows(inputs, "hash_no_pad_kernel")
     out = torch.empty((x.shape[0], DIGEST), dtype=torch.int64, device=x.device)
-    _launch(hash_no_pad_kernel, "bsx_poseidon_hash_no_pad", x, out, x.shape[0], n, rs, cs)
+    key = (tuple(inputs.shape), inputs.dim() == 2 and not x.is_contiguous())
+    _launch(hash_no_pad_kernel, key, "bsx_poseidon_hash_no_pad", x, out, x.shape[0], n, rs, cs)
     return out.reshape(batch + (DIGEST,))
 
 
 hash_no_pad_kernel.launches = 0
+hash_no_pad_kernel.calls = collections.Counter()
 
 
 def launches() -> int:

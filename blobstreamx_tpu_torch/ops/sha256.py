@@ -16,6 +16,8 @@ comparisons for uint32.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -168,10 +170,13 @@ def sha256_fixed_len_kernel(msgs: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(msgs.device).cuda_stream)
     kernels.check(rc, "bsx_sha256_fixed_len")
     sha256_fixed_len_kernel.launches += 1
+    sha256_fixed_len_kernel.calls[tuple(msgs.shape)] += 1
     return out
 
 
+# launches, and launches by shape
 sha256_fixed_len_kernel.launches = 0
+sha256_fixed_len_kernel.calls = collections.Counter()
 
 
 def sha256_fixed_len(msgs, device=None) -> torch.Tensor:

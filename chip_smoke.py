@@ -52,8 +52,9 @@ Run from the repository root. It prints one JSON line per phase:
                 constraint sweep
   kernel_shapes every NTT and Poseidon call shape the two full phases gave
                 the kernels: launches, time, bound, equality with the plain
-                version (Poseidon leaves of more than 2^16 rows compared on
-                their first and last 2^12 rows)
+                version (Poseidon leaves of more than 2^13 rows compared on
+                their first and last 2^12 rows and one row of every block of
+                the kernel's grid)
 
 then the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero without the ok line.
@@ -78,8 +79,13 @@ N_FULL = 1 << 16
 # next_header at vss=128
 NEXT_HEADER_VSS = 128
 # Poseidon leaf hashes held against the plain version on this many rows at
-# each end when taller (a row's digest depends on that row alone)
+# each end when taller (a row's digest depends on that row alone), and on
+# one row of every block of the kernel's grid (csrc/poseidon.cu: kThreads
+# rows a block)
 POSEIDON_CHECK_ROWS = 1 << 12
+POSEIDON_BLOCK_ROWS = 128
+# the prover's torch.profiler ranges (proof/system.py), a table each
+PROVER_RANGES = ("logup_aux:", "constraint_sweep:")
 # recorded mocha-4 chain data (headers, data commitments), read as JSON
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "blobstreamx_tpu", "fixtures", "mocha-4")
@@ -109,6 +115,18 @@ SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count and launches by call shape to 0."""
+    from blobstreamx_tpu_torch.field import ntt as nttmod
+    from blobstreamx_tpu_torch.ops import poseidon as pos
+    from blobstreamx_tpu_torch.ops import sha256 as sha
+
+    for wrapper in (nttmod.ntt_kernel, pos.permute_kernel, pos.hash_no_pad_kernel,
+                    sha.sha256_fixed_len_kernel):
+        wrapper.launches = 0
+        wrapper.calls.clear()
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -378,7 +396,7 @@ def phase_sha256_bench(torch, np):
 
     msgs = np.random.default_rng(2).integers(0, 256, size=(1 << 15, 64), dtype=np.uint8)
     torch.cuda.synchronize()
-    sha.sha256_fixed_len_kernel.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     digests = sha.sha256_fixed_len(msgs)  # numpy in: hashed on the card
     torch.cuda.synchronize()
@@ -512,9 +530,7 @@ def phase_proof_full(torch, np, dev, n_rows: int = N_FULL, n_blocks: int = 32):
     stark.build(air, n_rows, cfg, dev)  # the preprocessed oracle: set-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nttmod.ntt_kernel.launches = 0
-    pos.permute_kernel.launches = 0
-    pos.hash_no_pad_kernel.launches = 0
+    reset_counts()
     timer = system.PhaseTimer()
     t0 = time.perf_counter()
     proof = system.prove_system([spec], cfg, device=dev, timer=timer)
@@ -551,7 +567,12 @@ def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0,
     ``host_s`` is the part of prove_s that is host-only work (witness and
     traces); ``ranges`` names prover ranges (proof/system.py) whose kernel
     launches are counted. The profiler's raw events are read directly: a
-    circuit prove has millions, too many to turn into Python event trees."""
+    circuit prove has millions, too many to turn into Python event trees.
+    Every annotated range (the prover's record_function ranges among them)
+    also shows on the device as an event as long as the range, under the
+    range's name: device events named as a host event or as a prover range
+    are left out of the device time and kernel count, whatever ``ranges``
+    holds."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -566,20 +587,23 @@ def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0,
     t0 = time.perf_counter()
     events = prof.profiler.kineto_results.events()
     by_name = collections.defaultdict(lambda: [0, 0])  # name -> [ns, count]
-    launch_starts, spans = [], []
+    launch_starts, spans, host_names = [], [], set()
     for e in events:
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            if name.startswith(tuple(ranges)):  # the ranges' device-side copies
-                continue
             rec = by_name[name]
             rec[0] += e.duration_ns()
             rec[1] += 1
-        elif name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                      "cuLaunchKernelEx"):
+            continue
+        host_names.add(name)
+        if name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx"):
             launch_starts.append(e.start_ns())
         elif ranges and name.startswith(tuple(ranges)):
             spans.append((name, e.start_ns(), e.end_ns()))
+    dropped = 0  # the device copies of host ranges
+    for name in [k for k in by_name if k in host_names or k.startswith(PROVER_RANGES)]:
+        dropped += by_name.pop(name)[1]
     launch_starts.sort()
     in_ranges = {}
     for name, start, end in spans:
@@ -598,7 +622,7 @@ def phase_profile(torch, phase: str, prove, prove_s: float, host_s: float = 0.0,
          if busy_s else None,
          device_kernels=sum(c for _, _, c in rows), ours=ours,
          top=[{"kernel": k[:80], "device_s": us / 1e6, "count": c} for k, us, c in rows[:8]],
-         ranges=in_ranges, traced_prove_s=traced_s,
+         device_annotations_left_out=dropped, ranges=in_ranges, traced_prove_s=traced_s,
          read_events_s=time.perf_counter() - t0)
 
 
@@ -660,10 +684,7 @@ def phase_circuit_full(torch, np, dev, batch_size: int = 32, start: int = 10000,
     keys_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    nttmod.ntt_kernel.launches = 0
-    pos.permute_kernel.launches = 0
-    pos.hash_no_pad_kernel.launches = 0
-    sha.sha256_fixed_len_kernel.launches = 0
+    reset_counts()
     timer = system.PhaseTimer()
     t0 = time.perf_counter()
     proof, publics = job.prove(start, end, header, cfg, pks=pks, device=dev, timer=timer)
@@ -701,36 +722,17 @@ def phase_circuit_full(torch, np, dev, batch_size: int = 32, start: int = 10000,
     return launches
 
 
-class ShapeLog:
-    """While active, records the shape of every NTT and Poseidon leaf-hash
-    kernel call. The wrappers count their launches on the module attribute
-    they are reached by, which is the recorder while it is active; on exit
-    those counts are added back to the wrappers'."""
-
-    def __init__(self, nttmod, pos):
-        self.nttmod, self.pos = nttmod, pos
-        self.calls = collections.Counter()
-
-    def __enter__(self):
-        self._ntt, self._hash = self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel
-
-        def ntt(x, inverse=False):
-            self.calls[("ntt", tuple(x.shape), bool(inverse))] += 1
-            return self._ntt(x, inverse)
-
-        def hash_no_pad(x):
-            col_major = x.dim() == 2 and not x.is_contiguous() and x.t().is_contiguous()
-            self.calls[("poseidon", tuple(x.shape), col_major)] += 1
-            return self._hash(x)
-
-        ntt.launches = hash_no_pad.launches = 0
-        self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel = ntt, hash_no_pad
-        return self
-
-    def __exit__(self, *exc):
-        self._ntt.launches += self.nttmod.ntt_kernel.launches
-        self._hash.launches += self.pos.hash_no_pad_kernel.launches
-        self.nttmod.ntt_kernel, self.pos.hash_no_pad_kernel = self._ntt, self._hash
+def poseidon_check_rows(torch, n: int, dev):
+    """The rows of an n-row leaf hash held against the plain version: all of
+    them up to 2 * POSEIDON_CHECK_ROWS, else both ends and one row of every
+    block of the kernel's grid, at a lane that walks through the block."""
+    if n <= 2 * POSEIDON_CHECK_ROWS:
+        return torch.arange(n, device=dev)
+    starts = torch.arange(0, n, POSEIDON_BLOCK_ROWS, device=dev)
+    lanes = (torch.arange(starts.numel(), device=dev) * 37) % POSEIDON_BLOCK_ROWS
+    return torch.cat([torch.arange(POSEIDON_CHECK_ROWS, device=dev),
+                      (starts + lanes).clamp(max=n - 1),
+                      torch.arange(n - POSEIDON_CHECK_ROWS, n, device=dev)]).unique()
 
 
 def phase_kernel_shapes(torch, np, logs):
@@ -758,16 +760,11 @@ def phase_kernel_shapes(torch, np, logs):
             m = card_field(torch, gen, shape[::-1] if flag else shape, dev)
             leaves = m.t() if flag else m
             got = pos.hash_no_pad_kernel(leaves)
-            n = shape[0]
-            if n > 2 * POSEIDON_CHECK_ROWS:
-                sel = [slice(0, POSEIDON_CHECK_ROWS), slice(n - POSEIDON_CHECK_ROWS, n)]
-            else:
-                sel = [slice(0, n)]
-            err = max(max_abs_err(torch, got[sl], pos.hash_no_pad_plain(leaves[sl]))
-                      for sl in sel)
+            idx = poseidon_check_rows(torch, shape[0], dev)
+            err = max_abs_err(torch, got[idx], pos.hash_no_pad_plain(leaves[idx]))
             ms = cuda_ms(torch, lambda: pos.hash_no_pad_kernel(leaves), 3)
             bound_ms, bound_by = poseidon_bound(shape[0], shape[1])
-            checked = sum(sl.stop - sl.start for sl in sel)
+            checked = idx.numel()
             del m, leaves, got
         worst = max(worst, err)
         rows_out.append({"kernel": kind, "shape": list(shape),
@@ -849,16 +846,15 @@ def phase_tendermint_full(torch, np, dev, name: str, fetcher_dir: str, vss: int,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    nttmod.ntt_kernel.launches = 0
-    pos.permute_kernel.launches = 0
-    pos.hash_no_pad_kernel.launches = 0
+    reset_counts()
     timer = system.PhaseTimer()
-    with ShapeLog(nttmod, pos) as log:
-        t0 = time.perf_counter()
-        proof, publics, _, _ = circuit.prove(*args, cfg, pks=pks, device=dev, timer=timer)
-        torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, publics, _, _ = circuit.prove(*args, cfg, pks=pks, device=dev, timer=timer)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
     launches = {"ntt": nttmod.ntt_kernel.launches, "poseidon": pos.launches()}
+    calls = {("ntt",) + key: n for key, n in nttmod.ntt_kernel.calls.items()}
+    calls.update({("poseidon",) + key: n for key, n in pos.hash_no_pad_kernel.calls.items()})
     peak = torch.cuda.max_memory_allocated()
 
     c = circuit.circuit
@@ -889,7 +885,7 @@ def phase_tendermint_full(torch, np, dev, name: str, fetcher_dir: str, vss: int,
     def again():
         return circuit.prove(*args, cfg, pks=pks, device=dev)
 
-    return launches, dict(log.calls), (again, prove_s, host_s)
+    return launches, calls, (again, prove_s, host_s)
 
 
 def synthetic_chain(tmp: str, n_validators: int) -> str:
@@ -937,7 +933,7 @@ def main() -> int:
                                   f"{NEXT_HEADER_VSS} synthetic validators, all signing")
         prove, prove_s, host_s = again
         phase_profile(torch, "next_header_profile", prove, prove_s, host_s=host_s,
-                      ranges=("logup_aux:", "constraint_sweep:"))
+                      ranges=PROVER_RANGES)
         del prove, again
     torch.cuda.empty_cache()
     phase_kernel_shapes(torch, np, shape_logs)

@@ -11,6 +11,7 @@ Marked slow: the CPU proofs byte for byte against the JAX package's, and
 the recorded digests that the card checks against the live reference."""
 
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -20,13 +21,21 @@ import pytest
 import torch
 
 from blobstreamx_tpu.chips import ed25519 as jed_chip
+from blobstreamx_tpu.chips import range16 as jrange16
+from blobstreamx_tpu.chips import sha512 as jsha512
 from blobstreamx_tpu.circuits import header_range as jheader_range
 from blobstreamx_tpu.circuits import input as jinput
 from blobstreamx_tpu.circuits import next_header as jnext_header
+from blobstreamx_tpu.proof import air as jair
+from blobstreamx_tpu.proof import stark as jstark_mod
 from blobstreamx_tpu_torch.chips import ed25519 as ed_chip
+from blobstreamx_tpu_torch.chips import range16
+from blobstreamx_tpu_torch.chips import sha512
 from blobstreamx_tpu_torch.circuits import header_range
 from blobstreamx_tpu_torch.circuits import input as pinput
 from blobstreamx_tpu_torch.circuits import next_header
+from blobstreamx_tpu_torch.field.goldilocks import P
+from blobstreamx_tpu_torch.proof import air as pair
 from blobstreamx_tpu_torch.proof import check, serde, stark
 from blobstreamx_tpu_torch.testing import reference_digests as refs
 
@@ -49,9 +58,37 @@ def _header_range(fetcher=None):
     return c, c.make_public_inputs(10000, c.fetcher.get_header(10000).hash(), 10004)
 
 
+@pytest.fixture(scope="session")
+def shared_dir(tmp_path_factory):
+    """A directory that every xdist worker of one run sees (each worker's
+    base temp is a child of it), or this process's own without xdist."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def _witness_and_traces(name, port, ref, pub, shared):
+    """Both packages' witness and traces, made by the first worker that asks
+    and read from the shared directory by the others (tracing the reference
+    circuit takes seconds a worker)."""
+    path = shared / f"torch_tendermint_{name}.npz"
+    with open(shared / f"torch_tendermint_{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            vals, rvals = port.generate_witness(pub), ref.generate_witness(pub)
+            arrays = {"vals": vals, "rvals": rvals}
+            arrays.update({f"t_{k}": v for k, v in port.traces(vals).items()})
+            arrays.update({f"r_{k}": v for k, v in ref.traces(rvals).items()})
+            tmp = shared / f"torch_tendermint_{name}.tmp.npz"
+            np.savez(tmp, **arrays)
+            os.replace(tmp, path)
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
 @functools.lru_cache(maxsize=None)
-def built(name):
-    """Both packages' circuit, witness and traces (no proof), once a process."""
+def built(name, shared):
+    """Both packages' circuit, witness and traces (no proof), once a process;
+    the witness and traces once a run."""
     if name == "next_header":
         port, pub = _next_header()
         ref = jnext_header.NextHeaderCircuit(vss=2, fetcher=jinput.StepInputFetcher(FIXTURES))
@@ -60,14 +97,15 @@ def built(name):
         ref = jheader_range.HeaderRangeCircuit(vss=2, nb_map_jobs=1, batch_size=4,
                                                fetcher=jinput.SkipInputFetcher(FIXTURES))
     pc, rc = port.circuit, ref.circuit
-    vals, rvals = pc.generate_witness(pub), rc.generate_witness(pub)
-    return dict(port=pc, ref=rc, pub=pub, vals=vals, rvals=rvals,
-                traces=pc.traces(vals), rtraces=rc.traces(rvals))
+    arrays = _witness_and_traces(name, pc, rc, pub, shared)
+    return dict(port=pc, ref=rc, pub=pub, vals=arrays["vals"], rvals=arrays["rvals"],
+                traces={k[2:]: v for k, v in arrays.items() if k.startswith("t_")},
+                rtraces={k[2:]: v for k, v in arrays.items() if k.startswith("r_")})
 
 
 @pytest.mark.parametrize("name", CIRCUITS)
-def test_rows_witness_and_publics_match_reference(name):
-    c = built(name)
+def test_rows_witness_and_publics_match_reference(name, shared_dir):
+    c = built(name, shared_dir)
     pb, rb = c["port"].b, c["ref"].b
     assert [dataclasses.astuple(r) for r in pb.rows] == [dataclasses.astuple(r) for r in rb.rows]
     assert (pb.n_wires, pb.public_wires, pb.range_checked) == \
@@ -91,8 +129,8 @@ def test_rows_witness_and_publics_match_reference(name):
 
 
 @pytest.mark.parametrize("name", CIRCUITS)
-def test_traces_and_range_counts_match_reference(name):
-    c = built(name)
+def test_traces_and_range_counts_match_reference(name, shared_dir):
+    c = built(name, shared_dir)
     traces, rtraces = c["traces"], c["rtraces"]
     assert sorted(traces) == sorted(rtraces) == sorted(TABLES)
     for table in TABLES:
@@ -105,8 +143,8 @@ def test_traces_and_range_counts_match_reference(name):
 
 
 @pytest.mark.parametrize("name", CIRCUITS)
-def test_tables_and_preprocessed_columns_match_reference(name):
-    c = built(name)
+def test_tables_and_preprocessed_columns_match_reference(name, shared_dir):
+    c = built(name, shared_dir)
     pc, rc = c["port"], c["ref"]
     assert pc._table_names() == rc._table_names() == TABLES
     for table, air, rair in zip(TABLES, pc.airs(), rc.airs()):
@@ -131,6 +169,47 @@ def test_ed_trace_builder_holds_its_int64_bound():
     c[0, 0, 3] = ed_chip.LIMB_BOUND
     with pytest.raises(OverflowError):
         ed_chip._operand_limbs(spec, regs, c, None)
+
+
+# The new chips' AIRs (the port's Ed25519 AIR writes its identities as
+# stacked constraints) against the reference's on the same random rows at a
+# point: the constraints combined at a random alpha, and every bus message.
+NEW_AIRS = {
+    "ed": (lambda: ed_chip.Ed25519Air([ed_chip.SigInfo(0)], 2048),
+           lambda: jed_chip.Ed25519Air([jed_chip.SigInfo(0)], 2048)),
+    "sha512": (lambda: sha512.Sha512Air([], 512), lambda: jsha512.Sha512Air([], 512)),
+    "range16": (range16.Range16Air, jrange16.Range16Air),
+}
+
+
+def _eval_at_point(air, builder_cls, backend, rows, pre, alpha, sels, combine, **kw):
+    b = builder_cls(backend, rows=rows, publics=[], pre_rows=pre if air.pre_width else None,
+                    **kw)
+    air.eval(b)
+    n_lanes = sum(len(c.expr) if isinstance(c.expr, list) else 1 for c in b.constraints)
+    messages = [(i.channel, i.sign, [a.v for a in i.args], i.mult.v) for i in b.interactions]
+    return combine(b, alpha, sels), n_lanes, messages
+
+
+@pytest.mark.parametrize("chip", sorted(NEW_AIRS))
+def test_air_matches_reference_at_a_random_point(chip):
+    port_air, ref_air = (make() for make in NEW_AIRS[chip])
+    assert (port_air.width, port_air.pre_width) == (ref_air.width, ref_air.pre_width)
+    rng = np.random.default_rng(7)
+
+    def rand():
+        return tuple(int(x) for x in rng.integers(0, P, 2, dtype=np.uint64))
+
+    rows = {k: [rand() for _ in range(port_air.width)] for k in port_air.row_offsets}
+    pre = {k: [rand() for _ in range(port_air.pre_width)] for k in port_air.pre_offsets}
+    alpha, sels = rand(), tuple(rand() for _ in range(4))
+    got = _eval_at_point(port_air, pair.AirBuilder, pair.ExtPointBackend(), rows, pre,
+                         alpha, sels, stark._combine_constraints_point)
+    want = _eval_at_point(ref_air, jair.AirBuilder, jair.ExtPointBackend(), rows, pre,
+                          alpha, sels, jstark_mod._combine_constraints_point, periodic=[])
+    assert got[1] == want[1]  # constraint lanes
+    assert got[0] == want[0]  # the lanes combined at alpha
+    assert got[2] == want[2]  # bus messages: channel, sign, arguments, multiplicity
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +277,8 @@ ATTACKS = {
 
 @pytest.mark.parametrize("name", CIRCUITS)
 def test_witness_check_accepts_the_honest_witness(name):
-    c = built(name)
-    assert check.witness_failures(c["port"], c["pub"]) == []
+    circuit, pub = (_next_header if name == "next_header" else _header_range)()
+    assert check.witness_failures(circuit.circuit, pub) == []
 
 
 @pytest.mark.parametrize("attack", sorted(ATTACKS))
