@@ -1,10 +1,8 @@
 """Circuit frontend DSL — the plonky2x CircuitBuilder equivalent (SURVEY.md D7).
 
-The port's copy of ``blobstreamx_tpu/frontend/builder.py`` for the tables
-the port has (cpu, sha, sha512, ed, range16, bytes): it builds the same
-rows, wires and events, so a circuit's witness, traces and proof equal the
-JAX package's. The Poseidon gadgets and the pos table wait for the
-Poseidon chip.
+The port's copy of ``blobstreamx_tpu/frontend/builder.py`` (tables cpu,
+sha, sha512, pos, ed, range16, bytes): it builds the same rows, wires and
+events, so a circuit's witness, traces and proof equal the JAX package's.
 
 API surface mirrors the reference frontend (typed variables named like
 plonky2x's: ByteVariable, Bytes32Variable, U32Variable, U64Variable,
@@ -32,6 +30,7 @@ from ..chips import bytes as bytes_chip
 from ..chips import channels as ch
 from ..chips import cpu
 from ..chips import ed25519 as ed_chip
+from ..chips import poseidon as pos_chip
 from ..chips import range16 as range16_chip
 from ..chips import sha256 as sha_chip
 from ..chips import sha512 as sha512_chip
@@ -109,6 +108,25 @@ class Sha512Call:
 
 
 @dataclass
+class PosPerm:
+    """One scheduled Poseidon permutation (chips/poseidon.py row)."""
+
+    inst: int
+    chain: int
+    cpos: int
+    absorb: Dict[int, int]  # lane -> wire
+    carry: tuple = ()
+    merkle: bool = False
+    sib_wires: tuple = ()  # 4 wires (merkle mode)
+    dir_wire: int = -1
+    out_lanes: set = None
+
+    def __post_init__(self):
+        if self.out_lanes is None:
+            self.out_lanes = set()
+
+
+@dataclass
 class EdCall:
     """One Ed25519 verification instance routed to the EC chip."""
 
@@ -128,6 +146,8 @@ class CircuitBuilder:
         self.sha_calls: List[ShaCall] = []
         self.sha512_calls: List[Sha512Call] = []
         self.ed_calls: List[EdCall] = []
+        self.pos_perms: List[PosPerm] = []
+        self._pos_chains = 0
         self.range_checked: List[int] = []
         self.n_public = 0
         self.n_public_inputs = 0  # evm_read bytes (precede evm_write bytes)
@@ -617,6 +637,49 @@ class CircuitBuilder:
             out_bytes.extend(self.unpack_word_to_bytes(Variable(lo_w)))
         return out_bytes
 
+    # -- Poseidon (chips/poseidon.py; backs in-circuit recursion) -----------
+    def pos_new_chain(self) -> int:
+        """Allocate a chain id; perms with the same chain id carry state
+        in-chip (sponge / transcript duplex / Merkle climbs)."""
+        c = self._pos_chains
+        self._pos_chains += 1
+        return c
+
+    def pos_perm(self, chain: int, cpos: int, absorb: Dict[int, int],
+                 carry=(), merkle=False, sib_wires=(), dir_wire=-1) -> PosPerm:
+        """Schedule one permutation. absorb: {lane: wire}; carry: lanes
+        carried from the previous perm of the chain; merkle mode instead
+        consumes 4 sibling wires + a direction wire and dir-selects against
+        the previous perm's digest in-chip."""
+        inst = len(self.pos_perms)
+        perm = PosPerm(inst, chain, cpos, dict(absorb), tuple(carry),
+                       merkle, tuple(sib_wires), dir_wire)
+        self.pos_perms.append(perm)
+        flags_in = (0,) * 10 + (1, 0)
+        if merkle:
+            assert not absorb and not carry and cpos > 0
+            ins = [(w, 12 + j) for j, w in enumerate(sib_wires)] + [(dir_wire, 16)]
+        else:
+            ins = [(w, lane) for lane, w in sorted(absorb.items())]
+        for w, slot in ins:
+            self._row(cpu.Row(
+                in_idx=(self._read(w), 0, 0, 0), in_act=(1, 0, 0, 0),
+                flags=flags_in, io=(inst, slot, 0),
+            ))
+        self.events.append(("pos", perm))
+        return perm
+
+    def pos_read(self, perm: PosPerm, lane: int) -> Variable:
+        """Read one output lane of a scheduled permutation."""
+        assert lane not in perm.out_lanes, "lane already read"
+        perm.out_lanes.add(lane)
+        w = self._new_wire()
+        self._row(cpu.Row(
+            out_idx=w, defines=1, flags=(0,) * 11 + (1,),
+            io=(perm.inst, lane, 0),
+        ))
+        return Variable(w)
+
     # -- variable-length hashing ------------------------------------------
     def _pad_variable(self, message, length, min_len, block: int):
         """FIPS padding with circuit-computed position (len in [min_len, max]).
@@ -842,8 +905,8 @@ class CompiledCircuit:
         self.n_public_inputs = builder.n_public_inputs
         self.n_cpu_rows = 1 << max(4, (len(builder.rows) - 1).bit_length())
         self.cpu_air = cpu.CpuAir(builder.rows, self.n_cpu_rows)
-        # an empty SHA table is dropped entirely: its bus channels simply
-        # carry no messages, so the balance argument is unaffected
+        # an empty accelerator table is dropped entirely: its bus channels
+        # simply carry no messages, so the balance argument is unaffected
         self.sha_air = None
         n_blocks = sum(len(c.blocks_word_wires) for c in builder.sha_calls)
         if n_blocks:
@@ -866,6 +929,21 @@ class CompiledCircuit:
             self.sha512_air = sha512_chip.Sha512Air(
                 self.sha512_schedule, self.n_sha512_rows
             )
+        self.pos_air = None
+        if builder.pos_perms:
+            self.n_pos_rows = 1 << max(4, (len(builder.pos_perms) - 1).bit_length())
+            self.pos_schedule = pos_chip.pad_schedule(
+                [
+                    pos_chip.PermSpec(
+                        p.inst, p.chain, p.cpos,
+                        absorb=tuple(sorted(p.absorb)), carry=p.carry,
+                        merkle=p.merkle, out_lanes=tuple(sorted(p.out_lanes)),
+                    )
+                    for p in builder.pos_perms
+                ],
+                self.n_pos_rows,
+            )
+            self.pos_air = pos_chip.PoseidonAir(self.pos_schedule, self.n_pos_rows)
         self.bytes_air = bytes_chip.BytesAir()
         self.ed_air = None
         if builder.ed_calls:
@@ -937,7 +1015,10 @@ class CompiledCircuit:
                    for c in b.ed_calls],
         }
 
-    def traces(self, vals: np.ndarray) -> Dict[str, np.ndarray]:
+    def traces(self, vals: np.ndarray, device=None) -> Dict[str, np.ndarray]:
+        """Every table's trace from the solved wires (host numpy); the pos
+        table's S-box columns are computed on ``device`` (None: the card)."""
+        b = self.b
         if not hasattr(self, "_gathers"):
             self._gathers = self._trace_gathers()
         g = self._gathers
@@ -952,6 +1033,21 @@ class CompiledCircuit:
                 messages512.append(halves[:, 0::2] | (halves[:, 1::2] << np.uint64(32)))
             out["sha512"] = sha512_chip.build_trace(
                 messages512, self.n_sha512_rows, self.sha512_schedule
+            )
+        if self.pos_air is not None:
+            absorb_vals = {
+                p.inst: {lane: int(vals[w]) for lane, w in p.absorb.items()}
+                for p in b.pos_perms
+            }
+            sib_vals = {
+                p.inst: [int(vals[w]) for w in p.sib_wires]
+                for p in b.pos_perms if p.merkle
+            }
+            dir_vals = {
+                p.inst: int(vals[p.dir_wire]) for p in b.pos_perms if p.merkle
+            }
+            out["pos"] = pos_chip.build_trace(
+                self.pos_schedule, absorb_vals, sib_vals, dir_vals, device
             )
         counts = np.bincount(
             (vals[g["range"]] & np.uint64(0xFF)).astype(np.int64), minlength=256
@@ -987,8 +1083,8 @@ class CompiledCircuit:
     def airs(self) -> List:
         """The proof system's tables, in order (empty tables omitted)."""
         ed = (self.ed_air, self.range16_air) if self.ed_air is not None else ()
-        return [air for air in (self.cpu_air, self.sha_air, self.sha512_air) + ed
-                + (self.bytes_air,) if air is not None]
+        return [air for air in (self.cpu_air, self.sha_air, self.sha512_air,
+                                self.pos_air) + ed + (self.bytes_air,) if air is not None]
 
     def _table_names(self) -> List[str]:
         names = ["cpu"]
@@ -996,6 +1092,8 @@ class CompiledCircuit:
             names.append("sha")
         if self.sha512_air is not None:
             names.append("sha512")
+        if self.pos_air is not None:
+            names.append("pos")
         if self.ed_air is not None:
             names += ["ed", "range16"]
         return names + ["bytes"]
@@ -1018,7 +1116,7 @@ class CompiledCircuit:
         timer.mark("witness", None)
         vals = self.generate_witness(public_inputs)
         timer.mark("traces", None)
-        traces = self.traces(vals)
+        traces = self.traces(vals, dev)
         proof = system.prove_system(self.specs(traces, pks), cfg, device=dev,
                                     timer=timer)
         return proof, self.public_values(vals)
@@ -1041,17 +1139,24 @@ class CompiledCircuit:
         """Commit every table's preprocessed columns: (pks, vks)."""
         cfg = cfg or stark.StarkConfig()
         dev = devmod.resolve(device)
-        sizes = {"cpu": self.n_cpu_rows, "bytes": bytes_chip.N_ROWS}
-        if self.sha_air is not None:
-            sizes["sha"] = self.n_sha_rows
-        if self.sha512_air is not None:
-            sizes["sha512"] = self.n_sha512_rows
-        if self.ed_air is not None:
-            sizes["ed"] = self.ed_air.n_rows
-            sizes["range16"] = range16_chip.N_ROWS
+        sizes = self.table_sizes()
         pks, vks = [], []
         for name, air in zip(self._table_names(), self.airs()):
             pk, vk = stark.build(air, sizes[name], cfg, dev)
             pks.append(pk)
             vks.append(vk)
         return pks, vks
+
+    def table_sizes(self) -> Dict[str, int]:
+        """Rows of every table, by name."""
+        sizes = {"cpu": self.n_cpu_rows, "bytes": bytes_chip.N_ROWS}
+        if self.sha_air is not None:
+            sizes["sha"] = self.n_sha_rows
+        if self.sha512_air is not None:
+            sizes["sha512"] = self.n_sha512_rows
+        if self.pos_air is not None:
+            sizes["pos"] = self.n_pos_rows
+        if self.ed_air is not None:
+            sizes["ed"] = self.ed_air.n_rows
+            sizes["range16"] = range16_chip.N_ROWS
+        return sizes

@@ -1,11 +1,10 @@
 """Batched witness engine: compiles the frontend's straight-line event
 program into a leveled schedule executed as vectorized numpy/field sweeps.
 
-The port's copy of ``blobstreamx_tpu/frontend/witness.py`` for the events
-the port's frontend emits (arithmetic rows, hints, SHA-256 and SHA-512
-calls); the Poseidon batch waits for the Poseidon chip. Host numpy, as in the
-reference: a map job hashes a few hundred messages, below the size where
-the SHA-256 kernel pays.
+The port's copy of ``blobstreamx_tpu/frontend/witness.py``: arithmetic
+rows, hints, SHA-256 and SHA-512 calls and Poseidon permutations. Host
+numpy and python ints, as in the reference: a map job hashes a few hundred
+messages, below the size where the SHA-256 kernel pays.
 
   * build-once: every event gets a dataflow level (1 + max level of its
     input wires); events at the same level are independent by construction.
@@ -13,8 +12,9 @@ the SHA-256 kernel pays.
     as ONE vectorized operation — arithmetic rows as gathered Goldilocks
     numpy sweeps (field/goldilocks_host.py), typed hints (u32 splits,
     carries, borrows, inverses) as numpy expressions, SHA-256/512
-    compressions batched across calls. Only opaque callback hints (the witness fetchers,
-    a handful per circuit) remain Python calls.
+    compressions batched across calls, Poseidon permutations through the
+    python-int ``ops/poseidon.permute_py``. Only opaque callback hints (the
+    witness fetchers, a handful per circuit) remain Python calls.
 
 Equivalence with the interpreter is tested (tests/test_torch_frontend.py).
 """
@@ -31,6 +31,7 @@ import numpy as np
 from ..field import goldilocks_host as glh
 from ..field.extension import W
 from ..field.goldilocks import P
+from ..ops import poseidon as _pos
 from ..ops import sha256 as _sha
 from ..ops import sha512 as _sha5
 
@@ -52,6 +53,11 @@ class WitnessProgram:
 
     def _compile(self, b):
         rows = b.rows
+        # Poseidon read-wire map: rows with flags[11] (F_POS_OUT)
+        pos_reads: Dict[int, Dict[int, int]] = {}
+        for r in rows:
+            if r.defines and not r.constrain and len(r.flags) > 11 and r.flags[11]:
+                pos_reads.setdefault(r.io[0], {})[r.io[1]] = r.out_idx
         # op records: (kind, in_wires, out_wires, payload)
         ops = []
         for ev in b.events:
@@ -80,6 +86,14 @@ class WitnessProgram:
                 else:
                     ins = [w for blk in call.blocks_half_wires for w in blk]
                 ops.append(("sha512", ins, list(call.digest_half_wires), call))
+            elif ev[0] == "pos":
+                perm = ev[1]
+                if perm.merkle:
+                    ins = list(perm.sib_wires) + [perm.dir_wire]
+                else:
+                    ins = list(perm.absorb.values())
+                reads = pos_reads.get(perm.inst, {})
+                ops.append(("pos", ins, list(reads.values()), (perm, reads)))
 
         # Dataflow levels, independent of event-emission order: circuits may
         # legally consume wires whose producing hint_into is registered later
@@ -96,11 +110,17 @@ class WitnessProgram:
 
         n_ops = len(ops)
         deps: List[set] = [set() for _ in range(n_ops)]
+        last_perm_in_chain: Dict[int, int] = {}
         for i, (kind, ins, outs, payload) in enumerate(ops):
             for w in ins:
                 pi = producer[w]
                 if pi >= 0 and pi != i:
                     deps[i].add(int(pi))
+            if kind == "pos":
+                chain = payload[0].chain
+                if chain in last_perm_in_chain:
+                    deps[i].add(last_perm_in_chain[chain])
+                last_perm_in_chain[chain] = i
 
         consumers: List[List[int]] = [[] for _ in range(n_ops)]
         indeg = np.zeros(n_ops, dtype=np.int64)
@@ -183,6 +203,8 @@ class WitnessProgram:
                     np.stack([it[1] for it in items]),   # (B, n_out)
                 )
             return _Batch(kind, payload)
+        if kind == "pos":
+            return _Batch("pos", dict(perms=[op[3] for op in ops]))
         # generic callback hints
         return _Batch("call", dict(calls=[(op[3], op[1], op[2]) for op in ops]))
 
@@ -190,8 +212,13 @@ class WitnessProgram:
 
     def run(self, vals: np.ndarray):
         """Mutates vals in place."""
+        chains: Dict[int, list] = {}
         for batch in self.batches:
-            getattr(self, "_run_" + batch.kind)(batch.payload, vals)
+            if batch.kind == "pos":
+                for perm, reads in batch.payload["perms"]:
+                    _pos_step(perm, reads, vals, chains)
+            else:
+                getattr(self, "_run_" + batch.kind)(batch.payload, vals)
         return vals
 
     def _run_arith(self, p, vals):
@@ -314,6 +341,7 @@ class WitnessProgram:
         integers and the hints' ORIGINAL callbacks — independent of the
         vectorized kernels above, so it serves as the equivalence oracle
         for them (tests/test_torch_frontend.py)."""
+        chains: Dict[int, list] = {}
         for kind, ins, outs, payload in self._ops_sorted:
             if kind == "arith":
                 r = payload
@@ -361,8 +389,34 @@ class WitnessProgram:
                 flat = ([h for pair in halves[:4] for h in pair]
                         + [h for pair in halves[4:] for h in pair])
                 vals[np.array(outs, dtype=np.int64)] = np.array(flat, dtype=_U64)
+            elif kind == "pos":
+                _pos_step(*payload, vals, chains)
             else:  # every hint kind, typed or not: original callback
                 results = payload([int(vals[w]) for w in ins])
                 for w, r in zip(outs, results):
                     vals[w] = int(r) % P
         return vals
+
+
+def _pos_step(perm, reads: Dict[int, int], vals: np.ndarray, chains: Dict[int, list]):
+    """One scheduled permutation: its input state (absorbed wires, lanes
+    carried from its chain's last output, or a Merkle step), the python-int
+    permutation, and the lanes the circuit reads."""
+    st = [0] * _pos.WIDTH
+    if perm.merkle:
+        dig = chains[perm.chain][:4]
+        sib = [int(vals[w]) for w in perm.sib_wires]
+        if int(vals[perm.dir_wire]):
+            st[0:4], st[4:8] = sib, dig
+        else:
+            st[0:4], st[4:8] = dig, sib
+    else:
+        prev = chains.get(perm.chain)
+        for i in perm.carry:
+            st[i] = prev[i]
+        for lane, w in perm.absorb.items():
+            st[lane] = int(vals[w])
+    out = _pos.permute_py(st)
+    chains[perm.chain] = out
+    for lane, w in reads.items():
+        vals[w] = out[lane]

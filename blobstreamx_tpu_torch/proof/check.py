@@ -239,7 +239,8 @@ def _derive_challenges(traces: dict, publics) -> List[list]:
     return out
 
 
-def witness_failures(compiled, public_inputs: Dict[int, int]) -> List[str]:
+def witness_failures(compiled, public_inputs: Dict[int, int],
+                     device=None, tables=None) -> List[str]:
     """Full-system witness check for a CompiledCircuit: generate the
     witness, build every table trace, evaluate all constraints on the trace
     domain, and check the bus balances against the public byte stream.
@@ -247,21 +248,32 @@ def witness_failures(compiled, public_inputs: Dict[int, int]) -> List[str]:
     Returns what a verifier would reject, one line each: ``"table <name>:
     ..."`` with the failing constraints and rows, or ``"bus: ..."``; an
     empty list for a witness that satisfies everything. Witness-generation
-    exceptions propagate."""
+    exceptions propagate. A circuit with a pos table builds its S-box
+    columns on ``device`` (None: the card). ``tables`` (names) limits the
+    check to those tables' constraints, without the bus."""
+    vals = compiled.generate_witness(public_inputs)
+    return trace_failures(compiled, vals, compiled.traces(vals, device), tables)
+
+
+def trace_failures(compiled, vals, traces: dict, tables=None) -> List[str]:
+    """``witness_failures`` of a witness ``vals`` whose table traces are
+    already built."""
     from ..field.extension import GFp2 as F2
 
-    vals = compiled.generate_witness(public_inputs)
-    traces = compiled.traces(vals)
     names = compiled._table_names()
     airs = compiled.airs()
     out = []
     builders = {}
     for name, air in zip(names, airs):
+        if tables is not None and name not in tables:
+            continue
         builders[name] = _host_builder(air, traces[name])
         fails = _constraint_failures(builders[name], traces[name].shape[0])
         if fails:
             out.append(f"table {name}: {len(fails)} failing constraints, "
                        f"first {fails[:3]}")
+    if tables is not None:
+        return out
     publics = compiled.public_values(vals)
     for k, challenges in enumerate(_derive_challenges(traces, publics)):
         total = (0, 0)
@@ -280,7 +292,7 @@ def witness_failures(compiled, public_inputs: Dict[int, int]) -> List[str]:
     return out
 
 
-def witness_check(compiled, public_inputs: Dict[int, int]) -> bool:
+def witness_check(compiled, public_inputs: Dict[int, int], device=None) -> bool:
     """True iff the witness satisfies everything a verifier would enforce
     (``witness_failures`` is empty)."""
-    return not witness_failures(compiled, public_inputs)
+    return not witness_failures(compiled, public_inputs, device)

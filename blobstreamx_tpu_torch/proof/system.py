@@ -131,12 +131,24 @@ def introspect_interactions(air: Air) -> int:
 
 
 def _fingerprint(builder: AirBuilder, inter, gamma_pair) -> ExtElem:
-    """channel + gamma*arg0 + gamma^2*arg1 + ... as an ExtElem."""
+    """channel + gamma*arg0 + gamma^2*arg1 + ... as an ExtElem.
+
+    gamma_pair is an int pair on the prover and verifier (the powers of
+    gamma fold into host constants) or a pair of backend handles inside the
+    recursive verifier (proof/recursion.py), where the powers are computed
+    in-circuit."""
     acc = ExtElem.from_base(builder.const(inter.channel))
-    gp = (1, 0)
-    for a in inter.args:
-        gp = F2.mul(gp, gamma_pair)
-        acc = acc + builder.ext_const(gp) * a
+    if isinstance(gamma_pair[0], int):
+        gp = (1, 0)
+        for a in inter.args:
+            gp = F2.mul(gp, gamma_pair)
+            acc = acc + builder.ext_const(gp) * a
+    else:
+        gamma = ExtElem(builder.const(gamma_pair[0]), builder.const(gamma_pair[1]))
+        gp = builder.ext_const((1, 0))
+        for a in inter.args:
+            gp = gp * gamma
+            acc = acc + gp * a
     return acc
 
 

@@ -5,8 +5,8 @@ Each entry names the circuit, the block range and the ``StarkConfig`` it
 was proved under; ``proof_sha256`` is the SHA-256 of ``serde.dumps(proof)``
 as UTF-8, and ``reference_of`` names the package that made the proof. The
 slow tests ``test_recorded_digest_matches_live_reference_proof`` of
-``tests/test_torch_circuits.py`` and ``tests/test_torch_header_range.py``
-recompute them from the JAX package, so the constants cannot drift from
+``tests/test_torch_circuits.py``, ``tests/test_torch_header_range.py`` and
+``tests/test_torch_recursion.py`` recompute them from the JAX package, so the constants cannot drift from
 the reference.
 """
 
@@ -37,4 +37,14 @@ HEADER_RANGE_2 = dict(
     config=TEST_CONFIG,
     reference_of="blobstreamx_tpu",
     proof_sha256="6ae5df249b565e01e28709bc12847ebc62b8277e3c2e75d5e65e3382e4666798",
+)
+
+# the outer circuit of tests/test_recursion.py: the recursive verifier over
+# the recorded tiny_inner proof (testing/tiny_inner_proof.json)
+RECURSION_TINY = dict(
+    circuit="RecursiveVerifier over tiny_inner (testing/recursion.outer_circuit)",
+    inner_proof="testing/tiny_inner_proof.json",
+    config=TEST_CONFIG,
+    reference_of="blobstreamx_tpu",
+    proof_sha256="3071a968ded231fea58b634abf6db9fad887c74adb2f048560ffa1328f0a6ef4",
 )

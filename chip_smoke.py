@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It prints one JSON line per phase:
+Run from the repository root. It prints one JSON line per phase, each
+with ``wall_s``, the script's seconds when the phase ended:
 
   device        the card, and what nvidia-smi says of its power limit
   build         nvcc seconds for each kernel library, registers and spills
@@ -47,10 +48,19 @@ Run from the repository root. It prints one JSON line per phase:
                 StarkConfig over a synthetic chain of 128 validators
                 (testing/synthetic.py, written to a temporary directory): the
                 same fields, tamper probe on publics[40]
-  next_header_profile  that prove again under torch.profiler, with the
-                device kernels of the ed table's LogUp aux build and
-                constraint sweep
-  kernel_shapes every NTT and Poseidon call shape the two full phases gave
+  recursion_small  the recursive verifier's outer circuit over the recorded
+                proof of tests/test_recursion.py's tiny_inner circuit, at that
+                test's config: the proof's SHA-256 equals the recorded digest
+                of the JAX package's outer proof, verified
+  reduce_full   MapReduceProver(batch_size=32, nb_map_jobs=2, succinct=True)
+                .prove_succinct(10000, 10064) under the default StarkConfig
+                over a synthetic chain of 64 blocks: two SubchainMapCircuit(32)
+                proofs, then one ReduceCircuit (span 64) verifying both
+                in-circuit; verify_succinct, a flipped data-commitment byte
+                rejected, the root against the chain's data commitment; the
+                reduce node's tables, phases, launches, peak memory
+  reduce_profile  the reduce node's prove again under torch.profiler
+  kernel_shapes every NTT and Poseidon call shape the three full phases gave
                 the kernels: launches, time, bound, equality with the plain
                 version (Poseidon leaves of more than 2^13 rows compared on
                 their first and last 2^12 rows and one row of every block of
@@ -84,6 +94,10 @@ NEXT_HEADER_VSS = 128
 # rows a block)
 POSEIDON_CHECK_ROWS = 1 << 12
 POSEIDON_BLOCK_ROWS = 128
+# reduce_full's synthetic chain: validators (a map job checks no signature)
+# and the data-commitment ranges of its two map jobs and their root
+REDUCE_VALIDATORS = 4
+REDUCE_RANGES = ((10000, 10032), (10032, 10064), (10000, 10064))
 # the prover's torch.profiler ranges (proof/system.py), a table each
 PROVER_RANGES = ("logup_aux:", "constraint_sweep:")
 # recorded mocha-4 chain data (headers, data commitments), read as JSON
@@ -113,8 +127,13 @@ MODMUL_PER_PERMUTATION = 8 * (12 * 4 + 144) + 121 + 22 * (4 + 12 + 11)
 SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 
 
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``wall_s`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "wall_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def reset_counts():
@@ -315,10 +334,11 @@ def phase_kernel_check(torch, np):
     results = {}
 
     # NTT: every size class and pass plan (one pass up to 2^12, one upper
-    # pass from 2^13, a second from 2^21), both directions, batches of 1-3
+    # pass from 2^13, a second from 2^21), both directions, batches of 1-3,
+    # up to the reduce node's cpu LDE (2^24)
     ntt_err = 0.0
     ntt_cases = []
-    for log_n in (1, 4, 10, 12, 13, 16, 17, 19, 20, 21, 22):
+    for log_n in (1, 4, 10, 12, 13, 16, 17, 19, 20, 21, 22, 23, 24):
         batch = 1 + log_n % 3
         for make in (rand_field, edge_field):
             x = make(torch, gl, rng, (batch, 1 << log_n), dev)
@@ -888,16 +908,169 @@ def phase_tendermint_full(torch, np, dev, name: str, fetcher_dir: str, vss: int,
     return launches, calls, (again, prove_s, host_s)
 
 
-def synthetic_chain(tmp: str, n_validators: int) -> str:
-    """A chain of two signed blocks (10000, 10001) with ``n_validators``
-    validators, deterministic from the generator's fixed seed tag."""
+def phase_recursion_small(torch, dev):
+    """The recursive verifier's outer circuit over the recorded tiny_inner
+    proof (tests/test_recursion.py's config), proved on the card against
+    the recorded digest of the JAX package's outer proof: the first proof
+    with a pos table."""
+    from blobstreamx_tpu_torch.proof import recursion as rec
+    from blobstreamx_tpu_torch.proof import serde, stark
+    from blobstreamx_tpu_torch.testing import recursion as trec
+    from blobstreamx_tpu_torch.testing import reference_digests as refs
+
+    ref = refs.RECURSION_TINY
+    cfg = stark.StarkConfig(**ref["config"])
+    recorded = trec.load_tiny_inner()
+    inner = trec.tiny_inner()
+    inner_ok = inner.verify(recorded["proof"], recorded["publics"], cfg, device=dev)
+    t0 = time.perf_counter()
+    shapes = rec.inner_shapes(inner, cfg, dev)
+    flat = rec.flatten_system_proof(recorded["proof"], shapes, cfg)
+    outer = trec.outer_circuit(inner, recorded["publics"], flat, cfg, dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, publics = outer.prove({}, cfg, device=dev)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    text = serde.dumps(proof)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    t0 = time.perf_counter()
+    ok = outer.verify(serde.loads(text), publics, cfg, device=dev)
+    verify_s = time.perf_counter() - t0
+    rows = {t: int(tp.n_rows) for t, tp in zip(outer._table_names(), proof.table_proofs)}
+    emit("recursion_small", circuit=ref["circuit"], config=ref["config"], rows=rows,
+         pos_permutations=len(outer.b.pos_perms), inner_verified=inner_ok,
+         proof_sha256=digest, reference_sha256=ref["proof_sha256"],
+         reference_of=ref["reference_of"], equal_reference=digest == ref["proof_sha256"],
+         verified=ok, build_s=build_s, prove_s=prove_s, verify_s=verify_s)
+    if not (inner_ok and ok and digest == ref["proof_sha256"]):
+        raise SystemExit("recursion_small failed")
+
+
+def launch_snapshot():
+    """The NTT and Poseidon wrappers' launches and launches by call shape."""
+    from blobstreamx_tpu_torch.field import ntt as nttmod
+    from blobstreamx_tpu_torch.ops import poseidon as pos
+
+    calls = collections.Counter({("ntt",) + k: n for k, n in nttmod.ntt_kernel.calls.items()})
+    calls.update({("poseidon",) + k: n for k, n in pos.hash_no_pad_kernel.calls.items()})
+    return {"ntt": nttmod.ntt_kernel.launches, "poseidon": pos.launches()}, calls
+
+
+def phase_reduce_full(torch, np, dev, chain_dir: str):
+    """The first level of production header_range's aggregation tree through
+    MapReduceProver(batch_size=32, nb_map_jobs=2, succinct=True)
+    .prove_succinct under the default StarkConfig: two SubchainMapCircuit(32)
+    proofs over [10000, 10032) and [10032, 10064) of a synthetic chain, then
+    one ReduceCircuit (span 64) that verifies both in-circuit. Verified by
+    verify_succinct, a flipped data-commitment byte (in the claim and in the
+    root's public bytes) rejected, the root against the chain's data
+    commitment. Returns (path launches, reduce-node call shapes, profile)."""
+    from blobstreamx_tpu_torch.circuits import map_job
+    from blobstreamx_tpu_torch.circuits.input import InputDataFetcher
+    from blobstreamx_tpu_torch.parallel import mapreduce
+    from blobstreamx_tpu_torch.proof import serde, stark, system
+
+    start, end, batch = 10000, 10064, 32
+    cfg = stark.StarkConfig()
+    fetcher = InputDataFetcher(chain_dir)
+    t0 = time.perf_counter()
+    prover = mapreduce.MapReduceProver(
+        batch_size=batch, nb_map_jobs=2, fetcher=fetcher, cfg=cfg, succinct=True,
+        checkpoint_dir=os.path.join(chain_dir, "checkpoints"), device=dev)
+    map_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (node,) = prover.reduce_templates()  # commits the children's preprocessed caps
+    torch.cuda.synchronize()
+    reduce_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pks, vks = node.build_keys(cfg, dev)  # the reduce node's oracles: set-up
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+
+    class Timer(system.PhaseTimer):
+        """Notes the launch counts where the reduce node's prove begins."""
+        at_node = None
+
+        def mark(self, name, device):
+            if name == "witness" and self.at_node is None:
+                self.at_node = launch_snapshot()
+            super().mark(name, device)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timer = Timer()
+    t0 = time.perf_counter()
+    agg = prover.prove_succinct(start, end, timer=timer)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches, calls = launch_snapshot()
+    node_launches = {k: v - timer.at_node[0][k] for k, v in launches.items()}
+    node_calls = calls - timer.at_node[1]
+    peak = torch.cuda.max_memory_allocated()
+    phases = dict(timer.seconds)
+    map_jobs_s = phases.pop("map_jobs")
+    host_s = phases.get("witness", 0) + phases.get("traces", 0)
+    node_prove_s = path_s - map_jobs_s
+
+    c = node.circuit
+    proof = agg.root_proof
+    rows = {t: int(tp.n_rows) for t, tp in zip(c._table_names(), proof.table_proofs)}
+    widths = {t: [air.width, air.pre_width] for t, air in zip(c._table_names(), c.airs())}
+    pb = bytes(agg.root_publics)
+    expect = fetcher.get_data_commitment(start, end)
+    root_ok = agg.data_commitment == expect and pb[map_job.OUT_DATA_ROOT] == expect
+    start_header = fetcher.get_header(start).hash()
+    t0 = time.perf_counter()
+    ok = prover.verify_succinct(agg, start_header=start_header)
+    verify_s = time.perf_counter() - t0
+    flipped = bytearray(pb)
+    flipped[map_job.OUT_DATA_ROOT.start] ^= 1
+    bad = mapreduce.SuccinctProof(**{**vars(agg), "root_publics": list(flipped),
+                                     "data_commitment": bytes(flipped[map_job.OUT_DATA_ROOT])})
+    rejected = not prover.verify_succinct(bad, start_header=start_header)
+    text = serde.dumps(proof)
+    emit("reduce_full", circuit="ReduceCircuit(span=64) over 2 x SubchainMapCircuit(32)",
+         entry_point="MapReduceProver(batch_size=32, nb_map_jobs=2, succinct=True)"
+                     ".prove_succinct", blocks=[start, end], config=vars(cfg), rows=rows,
+         widths=widths, cpu_rows_used=len(c.b.rows), pos_permutations=len(c.b.pos_perms),
+         map_build_s=map_build_s, reduce_build_s=reduce_build_s, keys_s=keys_s,
+         map_jobs_s=map_jobs_s, witness_s=phases.get("witness"),
+         traces_s=phases.get("traces"), prove_s=node_prove_s,
+         system_prove_s=node_prove_s - host_s, phases_s=phases, path_s=path_s,
+         verify_s=verify_s, verified=ok, tamper_rejected=rejected, root=expect.hex(),
+         root_ok=root_ok, start_header_ok=pb[map_job.OUT_START_HEADER] == start_header,
+         launches=launches, node_launches=node_launches, max_memory_allocated=peak,
+         proof_json_bytes=len(text), proof_sha256=hashlib.sha256(text.encode()).hexdigest())
+    if not (ok and rejected and root_ok and all(node_launches.values())):
+        raise SystemExit("reduce_full failed")
+
+    leaves = []
+    for j in range(2):
+        with open(prover._ckpt_path(start + j * batch, end, agg.global_end_header)) as f:
+            d = json.load(f)
+        leaves.append((serde.system_proof_from_json(d["proof"]), d["publics"]))
+
+    def again():
+        return node.prove(start, end, agg.global_end_header, leaves[0], leaves[1], cfg,
+                          pks, dev)
+
+    return launches, dict(node_calls), (again, node_prove_s, host_s)
+
+
+def synthetic_chain(tmp: str, n_validators: int, n_blocks: int = 1,
+                    ranges=((10000, 10001),)) -> str:
+    """A chain of signed blocks 10000 .. 10000 + n_blocks with
+    ``n_validators`` validators and the data commitments of ``ranges``,
+    deterministic from the generator's fixed seed tag."""
     from blobstreamx_tpu_torch.testing import synthetic
 
     t0 = time.perf_counter()
     synthetic.make_chain_dir(tmp, chain_id="mocha-4", n_validators=n_validators,
-                             start=10000, n_blocks=1, ranges=[(10000, 10001)])
-    emit("synthetic_chain", validators=n_validators, heights=[10000, 10001],
-         seconds=time.perf_counter() - t0)
+                             start=10000, n_blocks=n_blocks, ranges=list(ranges))
+    emit("synthetic_chain", validators=n_validators, heights=[10000, 10000 + n_blocks],
+         ranges=list(ranges), seconds=time.perf_counter() - t0)
     return tmp
 
 
@@ -922,25 +1095,30 @@ def main() -> int:
     paths["circuit_full"] = phase_circuit_full(torch, np, dev)
     phase_tendermint_small(torch, dev, "next_header")
     phase_tendermint_small(torch, dev, "header_range")
+    phase_recursion_small(torch, dev)
     shape_logs = {}
     paths["header_range_full"], shape_logs["header_range_full"], _ = phase_tendermint_full(
         torch, np, dev, "header_range", FIXTURES, 2, "bench.py's shape, recorded fixtures")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         chain = synthetic_chain(tmp, NEXT_HEADER_VSS)
-        paths["next_header_full"], shape_logs["next_header_full"], again = \
+        paths["next_header_full"], shape_logs["next_header_full"], _ = \
             phase_tendermint_full(torch, np, dev, "next_header", chain, NEXT_HEADER_VSS,
                                   f"{NEXT_HEADER_VSS} synthetic validators, all signing")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        chain = synthetic_chain(tmp, REDUCE_VALIDATORS, n_blocks=64, ranges=REDUCE_RANGES)
+        paths["reduce_full"], shape_logs["reduce_full"], again = \
+            phase_reduce_full(torch, np, dev, chain)
         prove, prove_s, host_s = again
-        phase_profile(torch, "next_header_profile", prove, prove_s, host_s=host_s,
+        phase_profile(torch, "reduce_profile", prove, prove_s, host_s=host_s,
                       ranges=PROVER_RANGES)
         del prove, again
     torch.cuda.empty_cache()
     phase_kernel_shapes(torch, np, shape_logs)
-    # each kernel's launches on this slice's path: the full-width next_header
-    # prove for the NTT and Poseidon, the bench entry point for SHA-256
-    main = {"ntt": "next_header_full", "poseidon": "next_header_full",
-            "sha256": "sha256_bench"}
+    # each kernel's launches on this slice's path: succinct aggregation of
+    # two map jobs for the NTT and Poseidon, the bench entry point for SHA-256
+    main = {"ntt": "reduce_full", "poseidon": "reduce_full", "sha256": "sha256_bench"}
     table = []
     for name, replaces in (("ntt", "blobstreamx_tpu/ops/pallas/ntt.py:78"),
                            ("poseidon", "blobstreamx_tpu/ops/pallas/poseidon.py:113"),

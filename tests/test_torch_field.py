@@ -205,12 +205,15 @@ def _entry_point_calls():
     """Each public function of the port that takes ``device``, called with
     the default (None: the card) on a small input."""
     from blobstreamx_tpu_torch.chips import bytes as bytes_chip
+    from blobstreamx_tpu_torch.chips import poseidon as pos_chip
     from blobstreamx_tpu_torch.circuits import data_commitment, header_range, input, map_job
     from blobstreamx_tpu_torch.circuits import next_header
+    from blobstreamx_tpu_torch.circuits.aggregate import ReduceCircuit
     from blobstreamx_tpu_torch.field import ntt
     from blobstreamx_tpu_torch.frontend import builder
     from blobstreamx_tpu_torch.ops import poseidon, sha256
-    from blobstreamx_tpu_torch.proof import stark, system
+    from blobstreamx_tpu_torch.parallel.mapreduce import MapReduceProver
+    from blobstreamx_tpu_torch.proof import recursion, stark, system
 
     cfg = stark.StarkConfig(rate_bits=2, cap_height=0, num_query_rounds=1, pow_bits=0,
                             final_poly_bits=1)
@@ -220,6 +223,9 @@ def _entry_point_calls():
     b = builder.CircuitBuilder()
     b.evm_write_bytes32(b.evm_read_bytes32())
     circuit = b.build()
+    pb = builder.CircuitBuilder()
+    pb.pos_read(pb.pos_perm(pb.pos_new_chain(), 0, {0: pb.constant(1).wire}), 0)
+    pos_circuit = pb.build()
     fixtures = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "blobstreamx_tpu", "fixtures", "mocha-4")
     return {
@@ -256,6 +262,21 @@ def _entry_point_calls():
             vss=2, fetcher=input.SkipInputFetcher(fixtures)).prove(10000, 10004, cfg),
         "HeaderRangeCircuit.build_keys": lambda: header_range.HeaderRangeCircuit(
             vss=2, fetcher=input.SkipInputFetcher(fixtures)).build_keys(cfg),
+        "poseidon_chip.permute_capture": lambda: pos_chip.permute_capture(
+            np.zeros((1, 12), dtype=np.uint64)),
+        "poseidon_chip.build_trace": lambda: pos_chip.build_trace(
+            pos_chip.pad_schedule([], 16), {}, {}, {}),
+        "CompiledCircuit.traces(pos table)": lambda: pos_circuit.traces(
+            pos_circuit.generate_witness({})),
+        "recursion.inner_shapes": lambda: recursion.inner_shapes(circuit, cfg),
+        "ReduceCircuit": lambda: ReduceCircuit(circuit, 2, cfg),
+        "ReduceCircuit.prove": lambda: ReduceCircuit(circuit, 2, cfg, device="cpu").prove(
+            10000, 10004, bytes(32), (None, []), (None, []), cfg),
+        "ReduceCircuit.build_keys": lambda: ReduceCircuit(
+            circuit, 2, cfg, device="cpu").build_keys(cfg),
+        "MapReduceProver.prove_succinct": lambda: MapReduceProver(
+            2, 2, input.InputDataFetcher(fixtures), cfg, succinct=True).prove_succinct(
+            10000, 10004),
     }
 
 
@@ -268,7 +289,10 @@ ENTRY_POINTS = ["ntt.ntt", "ntt.lde", "ntt.interpolate_coeffs", "poseidon.permut
                 "CompiledCircuit.build_keys", "DataCommitmentCircuit.prove",
                 "SubchainMapCircuit.prove", "NextHeaderCircuit.prove",
                 "NextHeaderCircuit.build_keys", "HeaderRangeCircuit.prove",
-                "HeaderRangeCircuit.build_keys"]
+                "HeaderRangeCircuit.build_keys", "poseidon_chip.permute_capture",
+                "poseidon_chip.build_trace", "CompiledCircuit.traces(pos table)",
+                "recursion.inner_shapes", "ReduceCircuit", "ReduceCircuit.prove",
+                "ReduceCircuit.build_keys", "MapReduceProver.prove_succinct"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

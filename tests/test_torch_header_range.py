@@ -11,7 +11,6 @@ Marked slow: the CPU proofs byte for byte against the JAX package's, and
 the recorded digests that the card checks against the live reference."""
 
 import dataclasses
-import fcntl
 import functools
 import hashlib
 import os
@@ -38,6 +37,7 @@ from blobstreamx_tpu_torch.field.goldilocks import P
 from blobstreamx_tpu_torch.proof import air as pair
 from blobstreamx_tpu_torch.proof import check, serde, stark
 from blobstreamx_tpu_torch.testing import reference_digests as refs
+from torch_shared import shared_arrays, shared_dir  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -58,31 +58,17 @@ def _header_range(fetcher=None):
     return c, c.make_public_inputs(10000, c.fetcher.get_header(10000).hash(), 10004)
 
 
-@pytest.fixture(scope="session")
-def shared_dir(tmp_path_factory):
-    """A directory that every xdist worker of one run sees (each worker's
-    base temp is a child of it), or this process's own without xdist."""
-    base = tmp_path_factory.getbasetemp()
-    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
-
-
 def _witness_and_traces(name, port, ref, pub, shared):
     """Both packages' witness and traces, made by the first worker that asks
     and read from the shared directory by the others (tracing the reference
     circuit takes seconds a worker)."""
-    path = shared / f"torch_tendermint_{name}.npz"
-    with open(shared / f"torch_tendermint_{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            vals, rvals = port.generate_witness(pub), ref.generate_witness(pub)
-            arrays = {"vals": vals, "rvals": rvals}
-            arrays.update({f"t_{k}": v for k, v in port.traces(vals).items()})
-            arrays.update({f"r_{k}": v for k, v in ref.traces(rvals).items()})
-            tmp = shared / f"torch_tendermint_{name}.tmp.npz"
-            np.savez(tmp, **arrays)
-            os.replace(tmp, path)
-    with np.load(path) as data:
-        return {k: data[k] for k in data.files}
+    def make():
+        vals, rvals = port.generate_witness(pub), ref.generate_witness(pub)
+        arrays = {"vals": vals, "rvals": rvals}
+        arrays.update({f"t_{k}": v for k, v in port.traces(vals).items()})
+        arrays.update({f"r_{k}": v for k, v in ref.traces(rvals).items()})
+        return arrays
+    return shared_arrays(shared, f"torch_tendermint_{name}", make)
 
 
 @functools.lru_cache(maxsize=None)
